@@ -9,8 +9,11 @@ result line is printed:
 1. the card's `nvidia-smi` name and power limit, then the build of every
    CUDA source of the port (one nvcc per source, all started together);
 2. the inbox kernel against its plain PyTorch version on the card, at the
-   dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds)
-   and on five degenerate cases: outputs must be exactly equal;
+   dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
+   at n=10^5 and n=10^6 (`inbox_bench.SHAPES`), on five degenerate cases
+   and on four more (2,000,000 packets to 4 destinations; n not a multiple
+   of the kernel's range per cluster; G=0; m=1): outputs must be exactly
+   equal;
 3. the port's tick on the card against the same tick on the CPU (n=256,
    10 ticks; pick+cuda, pick+cuda with Lifeguard, loss and a partition,
    and shift): every state field must be bit-equal;
@@ -20,9 +23,16 @@ result line is printed:
    JAX package's stable tick (70) with FP 0, and the inbox kernel must be
    launched exactly once per tick run;
 5. the same with `gossip_mode="shift"`: stable tick 55;
-6. the kernels line: per kernel its launches on the main path, its
-   median time over 100 launches at the slice's shapes, the plain
-   version's, and the bound.
+6. `torch.profiler` must see exactly one device kernel, and no memset,
+   in one `build_inbox` call (after the slice phases, so that no
+   profiling precedes their clocks); then the kernels line: per kernel
+   its launches on the main path, its median time over 100 launches at
+   the slice's shapes, the plain version's, and the bound; for the inbox
+   kernel also per shape of
+   `inbox_bench.SHAPES` its ms, device ms, plain ms, bound and host us
+   per call, the floor of CUDA-event timing, the kernel's cluster size
+   (its `kCluster`) and its device kernels per call. Every bound is
+   computed from this run's inputs.
 
 The last line is `{"ok": true, "device": {"platform": "gpu", ...}}`.
 """
@@ -30,14 +40,14 @@ The last line is `{"ok": true, "device": {"platform": "gpu", ...}}`.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
+import re
 import sys
 import time
 
 import numpy as np
 import torch
 
+from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import bench_params
 from corrosion_tpu_torch.models.cluster import ClusterSim
@@ -45,7 +55,6 @@ from corrosion_tpu_torch.ops import _build, inbox_cuda, swim
 
 SLICE_N = 10_000
 SLICE_EXPECT = {"pick": 70, "shift": 55}  # JAX package, same config + seed
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 # (n, g, m, slots, p_ok, dst_spread): tests/test_inbox_impls.py's cases
 DEGENERATE_CASES = [
@@ -55,21 +64,17 @@ DEGENERATE_CASES = [
     (32, 64, 10, 16, 0.0, 32),
     (32, 64, 10, 16, 1.0, 1),
 ]
+# (name, n, g, m, slots, p_ok, dst_spread or 0 for n)
+EDGE_CASES = [
+    ("skew", 10_000, 2_000_000, 5, 8, 0.8, 4),
+    ("ragged_n", 10_007, 20_014, 5, 8, 0.8, 0),  # prime n
+    ("G=0", 10_000, 0, 5, 8, 0.8, 0),
+    ("m=1", 10_000, 20_000, 1, 8, 0.8, 0),
+]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def inbox_case(seed, n, g, m, p_ok, spread, key_hi, dev):
-    rng = np.random.default_rng(seed)
-    arrays = (
-        rng.integers(0, spread, size=g).astype(np.int32),
-        rng.integers(0, n, size=(g, m)).astype(np.int32),
-        rng.integers(1, key_hi, size=(g, m)).astype(np.int32),
-        rng.random((g, m)) < p_ok,
-    )
-    return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
 def slice_inbox_case(seed, dev):
@@ -78,14 +83,11 @@ def slice_inbox_case(seed, dev):
     p = bench_params(SLICE_N)
     g, m = SLICE_N * 2, p["piggyback"] + p["antientropy"]
     return (SLICE_N, p["incoming_slots"],
-            inbox_case(seed, SLICE_N, g, m, 0.8, SLICE_N, 2**15, dev))
+            ib.inputs(seed, SLICE_N, g, m, dev))
 
 
 def phase_build() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    smi = ib.nvidia_smi()
     print(smi, flush=True)
     t0 = time.monotonic()
     logs = _build.build()
@@ -100,8 +102,13 @@ def phase_build() -> dict:
 def phase_inbox_kernel(dev) -> dict:
     cases = [slice_inbox_case(seed, dev) for seed in range(4)]
     for i, (n, g, m, slots, p_ok, spread) in enumerate(DEGENERATE_CASES):
-        cases.append((n, slots, inbox_case(99 + i, n, g, m, p_ok, spread,
-                                           2**20, dev)))
+        cases.append((n, slots, ib.inputs(99 + i, n, g, m, dev, p_ok, spread,
+                                          2**20)))
+    for i, (_, n, g, m, slots) in enumerate(ib.SHAPES[1:]):
+        cases.append((n, slots, ib.inputs(120 + i, n, g, m, dev)))
+    for i, (_, n, g, m, slots, p_ok, spread) in enumerate(EDGE_CASES):
+        cases.append((n, slots, ib.inputs(130 + i, n, g, m, dev, p_ok,
+                                          spread)))
     max_err = 0
     for n, slots, args in cases:
         got = inbox_cuda.build_inbox(n, slots, *args)
@@ -112,8 +119,29 @@ def phase_inbox_kernel(dev) -> dict:
             if not torch.equal(a, b):
                 raise AssertionError(f"inbox kernel differs from the plain "
                                      f"version at n={n}, slots={slots}")
+        del got, ref
     return {"phase": "inbox_kernel", "ok": True, "cases": len(cases),
             "max_abs_err": max_err}
+
+
+def kernels_per_call(n, slots, args) -> int:
+    """The device operations `torch.profiler` sees in one `build_inbox`
+    call: it must be exactly one kernel and no memset or copy."""
+    inbox_cuda.build_inbox(n, slots, *args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        inbox_cuda.build_inbox(n, slots, *args)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in on_device]
+    if len(on_device) != 1 or any(
+            w in names[0].lower() for w in ("memset", "memcpy")):
+        raise AssertionError(f"one build_inbox call ran {names} on the "
+                             f"device, not exactly one kernel")
+    return len(on_device)
 
 
 def phase_tick_parity(dev) -> dict:
@@ -193,27 +221,11 @@ def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
     return out
 
 
-def median_ms(fn, reps: int = 100) -> float:
-    """Median over `reps` calls of the device time of one call (CUDA
-    events around it, the card idle before each)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_kernels(dev, launches: dict, max_err: dict) -> dict:
-    n, slots, args = slice_inbox_case(7, dev)
-    g, m = args[1].shape
-    inbox_bytes = 4 * g + 2 * 4 * g * m + g * m + 2 * 4 * n * slots
+    kernels = kernels_per_call(*slice_inbox_case(0, dev))
+    shapes = ib.time_shapes(inbox_cuda.build_inbox,
+                            inbox_cuda.build_inbox_plain, dev)
+    at_slice = shapes[0]
     return {"kernels": [{
         "name": "inbox_build",
         "route": "cuda",
@@ -221,12 +233,18 @@ def phase_kernels(dev, launches: dict, max_err: dict) -> dict:
         "replaces": "corrosion_tpu/ops/inbox_pallas.py:140",
         "launches": launches["inbox_build"],
         "max_abs_err": max_err["inbox_build"],
-        "ms": median_ms(lambda: inbox_cuda.build_inbox(n, slots, *args)),
-        "plain_ms": median_ms(
-            lambda: inbox_cuda.build_inbox_plain(n, slots, *args)),
-        "bound_ms": 1e3 * inbox_bytes / HBM_BYTES_PER_S,
+        "ms": at_slice["ms"],
+        "plain_ms": at_slice["plain_ms"],
+        "bound_ms": at_slice["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "shapes": shapes,
+        "host_us": at_slice["host_us"],
+        "event_floor_ms": ib.event_floor_ms(),
+        "cluster_size": int(re.search(
+            r"constexpr int kCluster = (\d+);",
+            (_build.CSRC / "inbox.cu").read_text())[1]),
+        "device_kernels_per_call": kernels,
     }]}
 
 

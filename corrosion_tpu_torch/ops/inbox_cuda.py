@@ -3,8 +3,11 @@
 
 `build_inbox` is the wrapper of the hand-written kernel `csrc/inbox.cu`:
 for CUDA tensors it checks device, dtype, shape and contiguity, allocates
-the outputs and scratch, launches on the current stream, raises if the
-launch status is not 0, and counts the launch in `build_inbox.launches`.
+the two outputs (the kernel needs no scratch), makes one launch on the
+current stream, raises if the launch status is not 0 (a ValueError where
+the kernel does not take the shape: one destination's list of `slots` ids
+must fit in a block's shared memory), and counts the launch in
+`build_inbox.launches`.
 For CPU tensors it returns `build_inbox_plain`, the plain PyTorch version
 of the same function, because a CPU tensor cannot reach the kernel. There
 is no fallback from the kernel to the plain version.
@@ -18,6 +21,7 @@ int32, ok [G, m] bool; returns ([n, slots] subj with n for empty,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -60,14 +64,17 @@ def build_inbox_plain(n: int, slots: int, dst_g: torch.Tensor,
     return out_s[:-1].reshape(n, slots), out_k[:-1].reshape(n, slots)
 
 
-def _lib():
-    lib = _build.load("inbox")
-    fn = lib.inbox_build
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+
+@functools.cache
+def _kernel():
+    """The kernel's C entry point, its ctypes signature set once, at load."""
+    fn = _build.load("inbox").inbox_build
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(name, x, dtype, shape, device):
@@ -89,27 +96,33 @@ def build_inbox(n: int, slots: int, dst_g: torch.Tensor, subj: torch.Tensor,
     version for CPU tensors (see the module docstring)."""
     if dst_g.device.type == "cpu":
         return build_inbox_plain(n, slots, dst_g, subj, key, ok)
-    if dst_g.device.type != "cuda":
-        raise ValueError(f"build_inbox: unsupported device {dst_g.device}")
     if n <= 0 or slots <= 0:
         raise ValueError(f"build_inbox: need n > 0 and slots > 0, got {n}, "
                          f"{slots}")
     g, m = subj.shape
+    if n >= 2**31 or g * (m + 1) >= 2**31 - 1:
+        raise ValueError(f"build_inbox: need n < 2**31 and G * (m + 1) < "
+                         f"2**31 - 1 (the kernel packs a packet id and a count "
+                         f"in an int32), got n={n}, G={g}, m={m}")
+    if dst_g.device.type != "cuda":
+        raise ValueError(f"build_inbox: unsupported device {dst_g.device}")
     dev = dst_g.device
     _check("dst_g", dst_g, torch.int32, (g,), dev)
     _check("subj", subj, torch.int32, (g, m), dev)
     _check("key", key, torch.int32, (g, m), dev)
     _check("ok", ok, torch.bool, (g, m), dev)
-    lib = _lib()
+    launch = _kernel()
     out_subj = torch.empty((n, slots), dtype=torch.int32, device=dev)
     out_key = torch.empty((n, slots), dtype=torch.int32, device=dev)
-    scratch = torch.empty((3 * n + 1 + g,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.inbox_build(
+    status = launch(
         dst_g.data_ptr(), subj.data_ptr(), key.data_ptr(), ok.data_ptr(),
-        out_subj.data_ptr(), out_key.data_ptr(), scratch.data_ptr(),
-        g, m, n, slots, stream,
+        out_subj.data_ptr(), out_key.data_ptr(), g, m, n, slots,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
+    if status == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"build_inbox: slots={slots} does not fit: one "
+                         f"destination's list of {slots} ids must fit in a "
+                         f"block's shared memory")
     if status != 0:
         raise RuntimeError(f"inbox_build kernel launch failed: CUDA error "
                            f"{status}")

@@ -7,7 +7,8 @@ tests/test_inbox_impls.py runs it), `build_inbox_grouped` and the flat
 `build_inbox` exactly (int32 ==), on the five degenerate cases of
 tests/test_inbox_impls.py and on one case at the slice's m=5, slots=8.
 The kernel itself runs only on the card: its test compares it with the
-plain version there and skips elsewhere."""
+plain version there, one launch per call, on these cases and on larger
+ones (skew, a ragged n, G=0, m=1, slots=16), and skips elsewhere."""
 
 import functools
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from corrosion_tpu_torch import inbox_bench
 from corrosion_tpu_torch.ops import inbox_cuda
 from corrosion_tpu_torch.ops import swim as tswim
 
@@ -26,6 +28,14 @@ CASES = [
     (32, 64, 10, 16, 0.0, 32),  # all masked
     (32, 64, 10, 16, 1.0, 1),  # single destination takes all
     (300, 600, 5, 8, 0.8, 300),  # the slice's m and slots
+]
+# cases for the kernel alone, at the card's sizes
+CARD_CASES = CASES + [
+    (10_000, 2_000_000, 5, 8, 0.8, 4),  # skew: every packet to 4 members
+    (10_007, 20_014, 5, 8, 0.8, 10_007),  # prime n: ragged last range
+    (10_000, 0, 5, 8, 0.8, 10_000),  # G = 0: every row empty
+    (10_000, 20_000, 1, 8, 0.8, 10_000),  # m = 1
+    (100_000, 200_000, 5, 16, 0.8, 100_000),  # slots = 16
 ]
 
 
@@ -131,8 +141,35 @@ def test_wrapper_takes_plain_version_only_for_cpu_tensors():
         inbox_cuda.build_inbox(n, slots, *meta)
 
 
+def test_bound_counts_only_the_messages_that_land_in_a_cell():
+    """`inbox_bench.bound_ms` reads subj and key only for the cells the
+    output fills: as many as the plain version's non-empty cells."""
+    for n, g, m, slots, p_ok, spread in CASES:
+        t = [torch.from_numpy(a) for a in _case(29, n, g, m, p_ok, spread)]
+        out_subj, _ = inbox_cuda.build_inbox_plain(n, slots, *t)
+        filled = int((out_subj != n).sum())
+        want = 4 * g + g * m + 8 * filled + 8 * n * slots
+        got = inbox_bench.bound_ms(n, slots, t[0], t[3])
+        assert got == pytest.approx(1e3 * want / inbox_bench.HBM_BYTES_PER_S)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+def test_wrapper_rejects_slots_beyond_shared_memory():
+    """A destination's list of `slots` ids has to fit in one block's
+    shared memory; the kernel refuses the launch and the wrapper raises.
+    The limit is the card's, so this runs only there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the limit is the card's")
+    n, g, m = 16, 32, 4
+    t = [torch.from_numpy(a).cuda() for a in _case(7, n, g, m, 0.7, n)]
+    before = inbox_cuda.build_inbox.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        inbox_cuda.build_inbox(n, 1 << 16, *t)
+    assert inbox_cuda.build_inbox.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
 def test_kernel_equals_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
