@@ -10,29 +10,47 @@ result line is printed:
    CUDA source of the port (one nvcc per source, all started together);
 2. the inbox kernel against its plain PyTorch version on the card, at the
    dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
-   at n=10^5 and n=10^6 (`inbox_bench.SHAPES`), on five degenerate cases
-   and on four more (2,000,000 packets to 4 destinations; n not a multiple
-   of the kernel's range per cluster; G=0; m=1): outputs must be exactly
-   equal;
-3. the port's tick on the card against the same tick on the CPU (n=256,
+   at the other shapes of `inbox_bench.SHAPES` (n=10^5, n=10^6 and the
+   partial-view tick's n=262,144, G=524,288, m=12, slots=16), on five
+   degenerate cases and on four more (2,000,000 packets to 4
+   destinations; n not a multiple of the kernel's range per cluster; G=0;
+   m=1): outputs must be exactly equal;
+3. `entry()` on the card for one tick, bit-equal to the same call on the
+   CPU;
+4. the dense tick on the card against the same tick on the CPU (n=256,
    10 ticks; pick+cuda, pick+cuda with Lifeguard, loss and a partition,
    and shift): every state field must be bit-equal;
-4. the slice: `ClusterSim(10_000, seed=0, seed_mode="fingers",
+5. the same for the partial-view tick (n=256, K=64, 10 ticks; fused +
+   shift, fused + pick + cuda, r5 + pick + cuda with Lifeguard, loss 0.1
+   and a partition, r5 + batched feeds);
+6. the dense slice: `ClusterSim(10_000, seed=0, seed_mode="fingers",
    gossip_mode="pick", inbox_impl="cuda")` at the bench's widths boots to
    99.9% coverage through `run_until_stable_device`; it must end at the
    JAX package's stable tick (70) with FP 0, and the inbox kernel must be
-   launched exactly once per tick run;
-5. the same with `gossip_mode="shift"`: stable tick 55;
-6. `torch.profiler` must see exactly one device kernel, and no memset,
+   launched exactly once per tick run; then the same with
+   `gossip_mode="shift"`: stable tick 55;
+7. the partial-view slice at full width: `PViewClusterSim(262_144,
+   seed=0, gossip_mode="pick", inbox_impl="cuda", **bench.pview_params())`
+   (K=2048, fingers seeds, 8 feeds of 128 entries, tie epoch 512)
+   `.run_until_converged_device(0.99, 8, 2000, 10)` must return the JAX
+   package's converged tick with its six stats (`PVIEW_REF`, rtol 1e-6),
+   FP 0 and its 14 event totals exactly, with the inbox kernel launched
+   exactly once per tick; then the same in shift mode. Each run's
+   published registry delta (`kernel_event_totals()["pview"]`) must equal
+   its device event lane, and `FLIGHT` must hold its frames up to the
+   last tick. Each prints its wall (which holds one stats pass per 10
+   ticks), the wall per tick of 10 more ticks with no stats pass, and the
+   median of three stats passes;
+8. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks); then the kernels line: per kernel
-   its launches on the main path, its median time over 100 launches at
-   the slice's shapes, the plain version's, and the bound; for the inbox
-   kernel also per shape of
-   `inbox_bench.SHAPES` its ms, device ms, plain ms, bound and host us
-   per call, the floor of CUDA-event timing, the kernel's cluster size
-   (its `kCluster`) and its device kernels per call. Every bound is
-   computed from this run's inputs.
+   its launches on the main paths (and per path), its median time over
+   100 launches at the dense slice's shapes, the plain version's, and the
+   bound; for the inbox kernel also per shape of `inbox_bench.SHAPES` its
+   ms, device ms, plain ms, bound and host us per call, the floor of
+   CUDA-event timing, the kernel's cluster size (its `kCluster`) and its
+   device kernels per call. Every bound is computed from this run's
+   inputs.
 
 The last line is `{"ok": true, "device": {"platform": "gpu", ...}}`.
 """
@@ -49,12 +67,36 @@ import torch
 
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch.bench import bench_params
-from corrosion_tpu_torch.models.cluster import ClusterSim
-from corrosion_tpu_torch.ops import _build, inbox_cuda, swim
+from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
+from corrosion_tpu_torch.entry import entry
+from corrosion_tpu_torch.models.cluster import ClusterSim, PViewClusterSim
+from corrosion_tpu_torch.ops import _build, inbox_cuda, swim, swim_pview
+from corrosion_tpu_torch.runtime.metrics import (
+    KERNEL_EVENTS,
+    kernel_event_totals,
+)
+from corrosion_tpu_torch.runtime.records import FLIGHT
 
 SLICE_N = 10_000
 SLICE_EXPECT = {"pick": 70, "shift": 55}  # JAX package, same config + seed
+
+PVIEW_ARGS = dict(pview_params(), seed=0, inbox_impl="cuda")
+PVIEW_K = PVIEW_ARGS["slots"]
+PVIEW_STATS = ("pv_coverage", "mean_in_degree", "min_in_degree",
+               "occupancy", "false_positive", "detected")
+# The JAX package's PViewClusterSim(PVIEW_N, **PVIEW_ARGS,
+# gossip_mode=mode) with its "gsort" inbox, run on the CPU through
+# run_until_converged_device(0.99, 8, 2000, 10)'s key chain one chunk at
+# a time: the converged tick, the six PVIEW_STATS there, and its event
+# lane there (KERNEL_EVENTS order, totals since init).
+PVIEW_REF = {
+    "pick": (70, (0.9930076599121094, 2047.0, 499.0, 1.0, 0.0, 1.0),
+             (156358022, 0, 93086961, 63271061, 33286589, 63185415,
+              18350080, 0, 0, 0, 4587520, 0, 0, 0)),
+    "shift": (380, (0.990509033203125, 2047.0, 80.0, 1.0, 0.0, 1.0),
+              (1256559354, 0, 1175882126, 80677228, 90494823, 771930676,
+               99614720, 0, 0, 0, 24903680, 0, 0, 0)),
+}
 
 # (n, g, m, slots, p_ok, dst_spread): tests/test_inbox_impls.py's cases
 DEGENERATE_CASES = [
@@ -179,6 +221,126 @@ def phase_tick_parity(dev) -> dict:
             "configs": [c[0] for c in configs]}
 
 
+def _states_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in a._fields)
+
+
+def phase_entry(dev) -> dict:
+    """One tick of `entry()` on the card, bit-equal to the CPU's."""
+    outs = []
+    for d in (dev, "cpu"):
+        fn, (state, key) = entry(device=d)
+        outs.append(fn(state, key))
+    if not _states_equal(*outs):
+        raise AssertionError("entry(): the card's tick differs from the CPU's")
+    return {"phase": "entry", "ok": True, "n": 1024, "ticks": 1}
+
+
+def phase_pview_tick_parity(dev) -> dict:
+    n, k = 256, 64
+    base = dict(feeds_per_tick=4, feed_entries=16, tie_epoch=4)
+
+    def faults(state):
+        state = swim_pview.set_partition(
+            state, (np.arange(n) % 2).astype(np.int32))
+        state = swim_pview.set_degraded(state, [3, 17, 101], loss=0.3, lag=2)
+        return swim_pview.set_alive_many(state, [7], False)
+
+    configs = [
+        ("fused+shift", dict(), None),
+        ("fused+pick+cuda", dict(gossip_mode="pick", inbox_impl="cuda"),
+         None),
+        ("r5+pick+cuda+lifeguard+loss+partition",
+         dict(tick_mode="r5", gossip_mode="pick", inbox_impl="cuda",
+              lhm_max=4, loss=0.1), faults),
+        ("r5+batched", dict(tick_mode="r5", feed_mode="batched"), None),
+    ]
+    for name, kw, setup in configs:
+        params = swim_pview.PViewParams(n=n, slots=k, **base, **kw)
+        key = jr.PRNGKey(11)
+        states = [swim_pview.init_state(params, key, 3, "fingers", d)
+                  for d in ("cpu", dev)]
+        if setup:
+            states = [setup(s) for s in states]
+        for t in range(10):
+            sub = jr.fold_in(key, t)
+            states = [swim_pview.tick_impl(s, sub, params) for s in states]
+        for field in swim_pview.PViewState._fields:
+            if not torch.equal(getattr(states[0], field),
+                               getattr(states[1], field).cpu()):
+                raise AssertionError(f"pview {name}: field {field} differs "
+                                     f"between the card and the CPU")
+    return {"phase": "pview_tick_parity", "ok": True, "n": n, "slots": k,
+            "ticks": 10, "configs": [c[0] for c in configs]}
+
+
+def phase_pview_slice(dev, gossip_mode: str) -> dict:
+    kw = dict(PVIEW_ARGS, gossip_mode=gossip_mode)
+    warm = PViewClusterSim(4096, device=dev, **dict(kw, slots=256))
+    warm.step(2)  # first launches of every op outside the clock
+    warm.stats()
+    del warm
+    t0 = time.monotonic()
+    sim = PViewClusterSim(PVIEW_N, device=dev, **kw)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_event_totals().get("pview", {})
+    inbox_cuda.build_inbox.launches = 0
+    t0 = time.monotonic()
+    tick = sim.run_until_converged_device(0.99, 8, 2000, 10)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, ran = inbox_cuda.build_inbox.launches, sim.ticks
+    peak = torch.cuda.max_memory_allocated()
+    # telemetry: the run's published delta against its device lane
+    after = kernel_event_totals()["pview"]
+    lane = sim.state.events.cpu().numpy().astype(np.uint32)
+    published = [after.get(e, 0.0) - before.get(e, 0.0)
+                 for e in KERNEL_EVENTS]
+    last_frame = FLIGHT.window(1, kernel="pview")[-1]["tick"]
+    stats = sim.stats()
+    vals = [stats[k] for k in PVIEW_STATS]
+    # the run's wall holds one stats pass per 10 ticks; time both apart,
+    # after every check has read the converged state
+    st, p = sim.state, sim.params
+    stats_s = []
+    for _ in range(3):
+        t1 = time.monotonic()
+        swim_pview._stats_impl(p, st.slot_packed, st.alive, st.t).cpu()
+        stats_s.append(time.monotonic() - t1)
+    t1 = time.monotonic()
+    sim.step(10)  # synchronizes at its end
+    tick_ms = 1e3 * (time.monotonic() - t1) / 10
+    out = {
+        "phase": f"pview_slice_{gossip_mode}", "n": PVIEW_N,
+        "slots": PVIEW_K, "gossip_mode": gossip_mode,
+        "converged_tick": tick, "stats": dict(zip(PVIEW_STATS, vals)),
+        "init_s": init_s, "wall_s": wall,
+        "wall_ms_per_tick": 1e3 * wall / max(1, ran),
+        "tick_ms": tick_ms, "stats_pass_ms": 1e3 * sorted(stats_s)[1],
+        "inbox_kernel_launches": launches, "peak_mem_bytes": peak,
+        "events": dict(zip(KERNEL_EVENTS, lane.tolist())),
+        "last_flight_tick": last_frame,
+    }
+    want_launches = ran if gossip_mode == "pick" else 0
+    ref_tick, ref_vals, ref_events = PVIEW_REF[gossip_mode]
+    if (tick != ref_tick or stats["false_positive"] != 0.0
+            or not np.allclose(vals, ref_vals, rtol=1e-6, atol=0)
+            or lane.tolist() != list(ref_events)
+            or launches != want_launches):
+        raise AssertionError(f"pview slice off its reference: {out}, "
+                             f"expected {PVIEW_REF[gossip_mode]} and "
+                             f"{want_launches} kernel launches")
+    if published != [float(v) for v in lane] or last_frame != ran - 1:
+        raise AssertionError(f"pview telemetry: published {published}, "
+                             f"lane {lane.tolist()}, last flight frame "
+                             f"{last_frame} of {ran} ticks")
+    out["ok"] = True
+    return out
+
+
 def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
     params = dict(bench_params(SLICE_N), gossip_mode=gossip_mode,
                   inbox_impl=inbox_impl)
@@ -222,6 +384,7 @@ def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
 
 
 def phase_kernels(dev, launches: dict, max_err: dict) -> dict:
+    """`launches` maps each kernel to {main path: launches}."""
     kernels = kernels_per_call(*slice_inbox_case(0, dev))
     shapes = ib.time_shapes(inbox_cuda.build_inbox,
                             inbox_cuda.build_inbox_plain, dev)
@@ -231,7 +394,8 @@ def phase_kernels(dev, launches: dict, max_err: dict) -> dict:
         "route": "cuda",
         "source": "corrosion_tpu_torch/csrc/inbox.cu",
         "replaces": "corrosion_tpu/ops/inbox_pallas.py:140",
-        "launches": launches["inbox_build"],
+        "launches": sum(launches["inbox_build"].values()),
+        "launches_by_path": launches["inbox_build"],
         "max_abs_err": max_err["inbox_build"],
         "ms": at_slice["ms"],
         "plain_ms": at_slice["plain_ms"],
@@ -256,11 +420,18 @@ def main() -> int:
     emit(phase_build())
     inbox = phase_inbox_kernel(dev)
     emit(inbox)
+    emit(phase_entry(dev))
     emit(phase_tick_parity(dev))
+    emit(phase_pview_tick_parity(dev))
     pick = phase_slice(dev, "pick", "cuda")
     emit(pick)
     emit(phase_slice(dev, "shift", "gsort"))
-    emit(phase_kernels(dev, {"inbox_build": pick["inbox_kernel_launches"]},
+    pview_pick = phase_pview_slice(dev, "pick")
+    emit(pview_pick)
+    emit(phase_pview_slice(dev, "shift"))
+    paths = {"dense_pick": pick["inbox_kernel_launches"],
+             "pview_pick": pview_pick["inbox_kernel_launches"]}
+    emit(phase_kernels(dev, {"inbox_build": paths},
                        {"inbox_build": inbox["max_abs_err"]}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -64,6 +64,23 @@ def bench_params(n: int, feeds: int = 4) -> dict:
     )
 
 
+PVIEW_N = 262_144
+
+
+def pview_params() -> dict:
+    """The partial-view slice's settings: `scripts/pview_converge.py`'s
+    at its n=262,144 rung (K=2048, 8 feeds of 2048 // 16 = 128 entries,
+    tie epoch 512) with fingers seeds; the other widths are the kernel's
+    defaults."""
+    return dict(
+        slots=2048,
+        seed_mode="fingers",
+        feeds_per_tick=8,
+        feed_entries=128,
+        tie_epoch=512,
+    )
+
+
 def config_from_env(env=os.environ) -> dict:
     n = int(env.get("BENCH_N", "10000"))
     params = bench_params(n, int(env.get("BENCH_FEEDS", "4")))

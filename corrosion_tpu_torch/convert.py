@@ -1,9 +1,9 @@
 """Carrying state across from the JAX package, through numpy.
 
 The JAX side hands over `np.asarray` of each field, so nothing here
-imports JAX: the reference's `SwimState` becomes a dict of numpy arrays
-with the same field names, a key becomes a [2] uint32 array, and
-`SwimParams` becomes its `_asdict()`.
+imports JAX: the reference's `SwimState` or `PViewState` becomes a dict
+of numpy arrays with the same field names, a key becomes a [2] uint32
+array, and `SwimParams` or `PViewParams` becomes its `_asdict()`.
 """
 
 from __future__ import annotations
@@ -15,28 +15,48 @@ import torch
 
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.ops.swim import SwimParams, SwimState
+from corrosion_tpu_torch.ops.swim_pview import PViewParams, PViewState
 from corrosion_tpu_torch.runtime.device import resolve_device
+
+
+def _state_from_numpy(cls, fields: Dict[str, np.ndarray], device):
+    missing = set(cls._fields) - set(fields)
+    extra = set(fields) - set(cls._fields)
+    if missing or extra:
+        raise ValueError(f"state fields differ: missing {sorted(missing)}, "
+                         f"unexpected {sorted(extra)}")
+    dev = resolve_device(device)
+    return cls(**{
+        name: torch.from_numpy(np.array(fields[name], copy=True)).to(dev)
+        for name in cls._fields
+    })
+
+
+def _state_to_numpy(state) -> Dict[str, np.ndarray]:
+    return {name: getattr(state, name).cpu().numpy()
+            for name in state._fields}
 
 
 def swim_state_from_numpy(fields: Dict[str, np.ndarray], device) -> SwimState:
     """A `SwimState` on `device` from numpy arrays keyed by field name
     (dtypes kept: bool, int16, int32, float32)."""
-    missing = set(SwimState._fields) - set(fields)
-    extra = set(fields) - set(SwimState._fields)
-    if missing or extra:
-        raise ValueError(f"state fields differ: missing {sorted(missing)}, "
-                         f"unexpected {sorted(extra)}")
-    dev = resolve_device(device)
-    return SwimState(**{
-        name: torch.from_numpy(np.array(fields[name], copy=True)).to(dev)
-        for name in SwimState._fields
-    })
+    return _state_from_numpy(SwimState, fields, device)
 
 
 def swim_state_to_numpy(state: SwimState) -> Dict[str, np.ndarray]:
     """The state's fields as numpy arrays on the host."""
-    return {name: getattr(state, name).cpu().numpy()
-            for name in SwimState._fields}
+    return _state_to_numpy(state)
+
+
+def pview_state_from_numpy(fields: Dict[str, np.ndarray],
+                           device) -> PViewState:
+    """A `PViewState` on `device` from numpy arrays keyed by field name."""
+    return _state_from_numpy(PViewState, fields, device)
+
+
+def pview_state_to_numpy(state: PViewState) -> Dict[str, np.ndarray]:
+    """The state's fields as numpy arrays on the host."""
+    return _state_to_numpy(state)
 
 
 def key_from_numpy(key: np.ndarray) -> jr.Key:
@@ -47,10 +67,20 @@ def key_from_numpy(key: np.ndarray) -> jr.Key:
     return (int(k[0]), int(k[1]))
 
 
-def params_from_dict(d: dict) -> SwimParams:
-    """`SwimParams` from the reference's `_asdict()`; its
-    `inbox_impl="pallas"` becomes the port's "cuda"."""
+def _port_params(d: dict) -> dict:
     d = dict(d)
     if d.get("inbox_impl") == "pallas":
         d["inbox_impl"] = "cuda"
-    return SwimParams(**d)
+    return d
+
+
+def params_from_dict(d: dict) -> SwimParams:
+    """`SwimParams` from the reference's `_asdict()`; its
+    `inbox_impl="pallas"` becomes the port's "cuda"."""
+    return SwimParams(**_port_params(d))
+
+
+def pview_params_from_dict(d: dict) -> PViewParams:
+    """`PViewParams` from the reference's `_asdict()`, with "pallas"
+    becoming "cuda" as in `params_from_dict`."""
+    return PViewParams(**_port_params(d))

@@ -1,5 +1,5 @@
-"""Times of the gossip-inbox kernel on the card, at the slice's shape and
-at two larger ones.
+"""Times of the gossip-inbox kernel on the card, at the dense slice's
+shape, at two larger ones and at the partial-view slice's.
 
     python -m corrosion_tpu_torch.inbox_bench
     PYTHONPATH=<other checkout> python -P corrosion_tpu_torch/inbox_bench.py
@@ -34,13 +34,15 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
-# (name, n, G, m, slots): the slice's pick-mode tick (G = n * fanout,
-# m = piggyback + antientropy), and n = 10^5 and 10^6, the partial-view
-# kernel's sizes, at which bytes and not launches set the time
+# (name, n, G, m, slots): the dense slice's pick-mode tick (G = n *
+# fanout, m = piggyback + antientropy); n = 10^5 and 10^6, at which bytes
+# and not launches set the time; and the partial-view slice's pick-mode
+# tick (n = 262,144, m = 8 + 4, its default inbox of 16)
 SHAPES = (
     ("slice", 10_000, 20_000, 5, 8),
     ("100k", 100_000, 200_000, 5, 8),
     ("1M", 1_000_000, 2_000_000, 5, 16),
+    ("pview", 262_144, 524_288, 12, 16),
 )
 
 

@@ -1,15 +1,19 @@
-"""ClusterSim: drive the batched SWIM tick as a simulated devcluster.
+"""Simulation drivers: the counterparts of `corrosion_tpu/models/
+cluster.py`'s `ClusterSim` (the dense tick, `ops.swim`), `PViewClusterSim`
+(the partial-view tick, `ops.swim_pview`) and the Lifeguard A/B harness
+`flaky_node_ab`.
 
-The counterpart of `corrosion_tpu/models/cluster.py::ClusterSim`: n
-members advance as tensor rows through `ops.swim`, on the card unless
-`device="cpu"` is asked for. The rng chain is the reference's, so a
-simulation from the same seed follows the same trajectory tick for tick.
+n members advance as tensor rows, on the card unless `device="cpu"` is
+asked for. The rng chain is the reference's, so a simulation from the
+same seed follows the same trajectory tick for tick.
 
 Each stats readback also drains the device telemetry lane and the flight
-ring, as the reference computes them: `last_event_delta` holds the uint32
-growth of the event totals since the previous drain, and `last_flight`
-the latest `FlightDrain`. Publishing them into a metrics registry, a
-flight recorder and trace spans is not part of this port yet.
+ring, and publishes them as the reference does: the event totals' uint32
+growth since the previous drain into
+`corro.kernel.events.total{kernel, event}` of the process-global
+`runtime.metrics.METRICS`, and the new per-tick frames into the
+process-global `runtime.records.FLIGHT`, each inside a `runtime.trace`
+span. `last_event_delta` and `last_flight` keep the latest drain.
 """
 
 from __future__ import annotations
@@ -22,8 +26,15 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch.ops import _build, swim
+from corrosion_tpu_torch.ops import _build, swim, swim_pview
+from corrosion_tpu_torch.runtime import trace
 from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.metrics import (
+    KERNEL_EVENTS,
+    record_kernel_events,
+    record_phase_seconds,
+)
+from corrosion_tpu_torch.runtime.records import FLIGHT
 
 
 @dataclass
@@ -35,8 +46,37 @@ class TickMetrics:
     wall_s: float
 
 
-class ClusterSim:
+class _Drains:
+    """The telemetry drain both simulation drivers share."""
+
+    kernel = ""
+
+    def _reset_drain(self) -> None:
+        self._ev_prev = np.zeros(swim.N_EVENTS, dtype=np.uint32)
+        self._flight_next = 0  # flight cursor: first tick not yet drained
+        self.last_event_delta = np.zeros(swim.N_EVENTS, dtype=np.uint32)
+        self.last_flight: Optional[swim.FlightDrain] = None
+
+    def _drain(self, ev: np.ndarray, flight: swim.FlightDrain) -> None:
+        """Publish the event lane's growth since the last drain (the
+        device totals wrap mod 2^32, so the uint32 difference is exact
+        while one drain window stays under 2^32 events) and the ring's new
+        frames, each in a span, and keep both."""
+        self.last_event_delta = (ev - self._ev_prev).astype(np.uint32)
+        self._ev_prev = ev
+        with trace.span("sim.events.publish", kernel=self.kernel):
+            record_kernel_events(self.kernel, self.last_event_delta.tolist())
+        self.last_flight = flight
+        with trace.span("sim.flight.drain", kernel=self.kernel,
+                        tick=flight.t):
+            FLIGHT.record_ring(self.kernel, flight, since=self._flight_next)
+        self._flight_next = flight.t
+
+
+class ClusterSim(_Drains):
     """A simulated SWIM cluster of `n` members on one device."""
+
+    kernel = "dense"
 
     def __init__(
         self,
@@ -56,18 +96,7 @@ class ClusterSim:
         )
         self.history: List[TickMetrics] = []
         self.ticks = 0  # host-side mirror of state.t (no device readback)
-        self._ev_prev = np.zeros(swim.N_EVENTS, dtype=np.uint32)
-        self._flight_next = 0  # flight cursor: first tick not yet drained
-        self.last_event_delta = np.zeros(swim.N_EVENTS, dtype=np.uint32)
-        self.last_flight: Optional[swim.FlightDrain] = None
-
-    def _drain(self, ev: np.ndarray, flight: swim.FlightDrain) -> None:
-        """Take the event lane's wrap-safe uint32 growth since the last
-        drain and the latest flight ring."""
-        self.last_event_delta = (ev - self._ev_prev).astype(np.uint32)
-        self._ev_prev = ev
-        self.last_flight = flight
-        self._flight_next = flight.t
+        self._reset_drain()
 
     def step(self, ticks: int = 1) -> None:
         """Advance `ticks` protocol periods (no host sync)."""
@@ -188,3 +217,239 @@ class ClusterSim:
             if self.stats()["detected"] >= detect_target:
                 return i
         return None
+
+
+class PViewClusterSim(_Drains):
+    """A simulated cluster on the bounded partial-view tick: the driver
+    shape of `ClusterSim` past the dense view's memory wall. Convergence
+    is the four-term bar of `swim_pview.run_to_converged`.
+
+    `step` publishes its wall seconds per tick, measured after a
+    synchronize on the card, as
+    `corro.kernel.phase.seconds{kernel="pview", phase="tick"}`."""
+
+    kernel = "pview"
+
+    def __init__(
+        self,
+        n: int,
+        slots: int = 1024,
+        seed: int = 0,
+        seed_mode: str = "fingers",
+        device=None,
+        **param_overrides,
+    ):
+        self.device = resolve_device(device)
+        self.params = swim_pview.PViewParams(n=n, slots=slots,
+                                             **param_overrides)
+        self._rng = jr.PRNGKey(seed)
+        self._rng, init_key = jr.split(self._rng)
+        self.state = swim_pview.init_state(self.params, init_key,
+                                           seed_mode=seed_mode,
+                                           device=self.device)
+        self.ticks = 0  # host-side mirror of state.t (no device readback)
+        self._reset_drain()
+
+    def step(self, ticks: int = 1) -> None:
+        """Advance `ticks` protocol periods (always `tick_n`, as the
+        reference: one tick runs on `split(key, 1)[0]`)."""
+        self._rng, key = jr.split(self._rng)
+        t0 = time.monotonic()
+        self.state = swim_pview.tick_n(self.state, key, self.params, ticks)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        record_phase_seconds("pview", "tick",
+                             (time.monotonic() - t0) / max(1, ticks))
+        self.ticks += ticks
+
+    def crash_many(self, members) -> None:
+        self.state = swim_pview.set_alive_many(self.state, members, False)
+
+    def restart_many(self, members) -> None:
+        self.state = swim_pview.set_alive_many(self.state, members, True)
+
+    def degrade(self, members, loss: float = 0.0, lag: int = 0) -> None:
+        """Degraded-node fault injection: flaky, not dead (loss=0, lag=0
+        restores)."""
+        self.state = swim_pview.set_degraded(self.state, members, loss, lag)
+
+    def stats(self) -> Dict[str, float]:
+        """The four-term bar's stats; drains the event lane and the flight
+        ring in the same readback."""
+        s, ev, fl = swim_pview.stats_and_events(self.state, self.params)
+        self._drain(ev, fl)
+        return s
+
+    def converged(self, stats: Dict[str, float], cov_target: float = 0.99,
+                  quorum: int = 8) -> bool:
+        return (
+            stats["pv_coverage"] >= cov_target
+            and stats["min_in_degree"] >= quorum
+            and stats["mean_in_degree"]
+            >= swim_pview.saturation_floor(self.params.n, self.params.slots)
+            and stats["false_positive"] == 0.0
+        )
+
+    def run_until_converged(
+        self,
+        cov_target: float = 0.99,
+        quorum: int = 8,
+        max_ticks: int = 2000,
+        check_every: int = 10,
+    ) -> Optional[int]:
+        """Step `check_every` ticks at a time and check the bar on the
+        host; returns the tick count at convergence or None."""
+        while self.ticks < max_ticks:
+            self.step(min(check_every, max_ticks - self.ticks))
+            if self.converged(self.stats(), cov_target, quorum):
+                return self.ticks
+        return None
+
+    def run_until_converged_device(
+        self,
+        cov_target: float = 0.99,
+        quorum: int = 8,
+        max_ticks: int = 2000,
+        check_every: int = 10,
+    ) -> Optional[int]:
+        """Tick in `check_every`-tick chunks with one 6-value readback per
+        chunk (swim_pview.run_to_converged); returns the absolute tick at
+        convergence or None. `last_vals` keeps the final stats row."""
+        if check_every < 1:
+            raise ValueError("check_every must be >= 1")
+        self._rng, key = jr.split(self._rng)
+        limit = self.ticks + max_ticks
+        self.state, vals = swim_pview.run_to_converged(
+            self.state, key, self.params,
+            float(cov_target), int(quorum), int(check_every), int(limit),
+        )
+        # one readback: the lane and the ring the loop accumulated
+        ev, fl = swim.events_and_flight(self.state)
+        self.ticks = fl.t
+        self._drain(ev, fl)
+        self.last_vals = vals
+        ok = swim_pview._converged(vals, self.params, cov_target, quorum)
+        return self.ticks if ok else None
+
+
+# ---------------------------------------------------------------------------
+# Lifeguard A/B harness: one degraded member, both kernels
+
+_EV = {name: i for i, name in enumerate(KERNEL_EVENTS)}
+
+
+def _mk_sim(kernel: str, n: int, slots: int, seed: int, lifeguard: bool,
+            **overrides):
+    lg = dict(lhm_max=8, susp_ceiling=3, susp_k=3) if lifeguard else {}
+    if kernel == "dense":
+        return ClusterSim(n, seed=seed, **lg, **overrides)
+    if kernel == "pview":
+        return PViewClusterSim(n, slots=slots, seed=seed,
+                               seed_mode="fingers", **lg, **overrides)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _events(sim) -> np.ndarray:
+    return sim.state.events.cpu().numpy().astype(np.int64)
+
+
+def flaky_node_ab(
+    kernel: str = "dense",
+    seed: int = 0,
+    n: int = 96,
+    slots: int = 48,
+    boot_ticks: int = 40,
+    window: int = 240,
+    lag: int = 2,
+    loss: float = 0.0,
+    chunk: int = 20,
+    detect_chunk: int = 5,
+    detect_cap: int = 200,
+    suspicion_ticks: int = 4,
+    drain_flight: bool = False,
+    **overrides,
+) -> dict:
+    """One seeded vanilla-vs-Lifeguard A/B (the reference's harness).
+
+    Boot `n` members; phase A degrades member 1 (lag `lag`, loss `loss`,
+    alive throughout) for `window` ticks and counts ground-truth false
+    suspicions and downs from the event lane; phase B crashes member 2
+    and counts ticks until every live observer has it detected. Both
+    modes replay the same seed, vanilla with lhm_max=0 and Lifeguard with
+    lhm_max=8. Returns per-mode counts and detection ticks, and with
+    `drain_flight` the Lifeguard run's suspicion timeline from `FLIGHT`.
+    `overrides` carries `device` and parameter overrides."""
+    out: dict = {"kernel": kernel, "seed": seed, "n": n, "lag": lag,
+                 "loss": loss, "window": window}
+    for mode in ("vanilla", "lifeguard"):
+        mode_wall = time.time()
+        sim = _mk_sim(kernel, n, slots, seed, mode == "lifeguard",
+                      suspicion_ticks=suspicion_ticks, **overrides)
+        done = 0
+        while done < boot_ticks:
+            sim.step(min(chunk, boot_ticks - done))
+            done += chunk
+        # ---- phase A: one flaky member, count false accusations ----
+        sim.degrade([1], loss=loss, lag=lag)
+        ev0 = _events(sim)
+        done = 0
+        while done < window:
+            sim.step(min(chunk, window - done))
+            done += chunk
+            if drain_flight:
+                sim.stats()  # drain the device ring into FLIGHT per chunk
+        delta = _events(sim) - ev0
+        rec = {
+            "suspect_fp": int(delta[_EV["suspect_fp"]]),
+            "down_fp": int(delta[_EV["down_fp"]]),
+            "suspect_raised": int(delta[_EV["suspect_raised"]]),
+            "refuted": int(delta[_EV["refuted"]]),
+            "confirmations": int(delta[_EV["suspicion_confirmations"]]),
+            "lhm_degraded": int(sim.state.lhm[1]),
+        }
+        # ---- phase B: a real crash must still be detected fast ----
+        if kernel == "dense":
+            sim.crash(2)
+        else:
+            sim.crash_many([2])
+        base = sim.ticks
+        det = None
+        while sim.ticks - base < detect_cap:
+            sim.step(detect_chunk)
+            if sim.stats()["detected"] >= 1.0:
+                det = sim.ticks - base
+                break
+        rec["detect_ticks"] = det
+        rec["detect_base"] = base
+        if drain_flight:
+            # this mode's frames: stamped at drain, after mode_wall
+            frames = [f for f in FLIGHT.window(4096, kernel=kernel)
+                      if f["wall"] >= mode_wall]
+            rec["timeline"] = [
+                {
+                    "tick": f["tick"],
+                    "suspect_raised": f["events"]["suspect_raised"],
+                    "suspect_fp": f["events"]["suspect_fp"],
+                    "down_declared": f["events"]["down_declared"],
+                    "down_fp": f["events"]["down_fp"],
+                    "refuted": f["events"]["refuted"],
+                    "confirmations": f["events"]["suspicion_confirmations"],
+                    "lhm_max": f["census"].get("lhm_max", 0),
+                    "open_timers": f["census"].get("census_suspect", 0),
+                }
+                for f in frames
+                if f["events"]["suspect_raised"]
+                or f["events"]["down_declared"]
+                or f["events"]["refuted"]
+            ][-64:]
+        out[mode] = rec
+    v, lf = out["vanilla"], out["lifeguard"]
+    out["fp_ratio"] = (
+        v["suspect_fp"] / max(1, lf["suspect_fp"])
+        if lf["suspect_fp"] or v["suspect_fp"] else None
+    )
+    out["detect_ratio"] = (
+        lf["detect_ticks"] / v["detect_ticks"]
+        if lf["detect_ticks"] and v["detect_ticks"] else None
+    )
+    return out

@@ -1,10 +1,15 @@
-"""Where a tick's time goes on the card: the slice's tick, profiled.
+"""Where a tick's time goes on the card: a slice's tick, profiled.
 
     python -m corrosion_tpu_torch.profile_tick [--n 10000] [--mode pick]
+    python -m corrosion_tpu_torch.profile_tick --kernel pview [--n 262144]
+        [--mode pick]
 
-Builds the slice's `ClusterSim` (fingers seeds, the bench's widths, pick
-mode with the CUDA inbox kernel or shift mode), warms it up for 10 ticks,
-then prints one JSON line each for:
+Builds the dense slice's `ClusterSim` (fingers seeds, the bench's widths)
+or, with `--kernel pview`, the partial-view slice's `PViewClusterSim`
+(`bench.pview_params`: K=2048, fingers seeds, 8 feeds of 128 entries,
+tie epoch 512), in pick mode with
+the CUDA inbox kernel or in shift mode, warms it up for 10 ticks, then
+prints one JSON line each for:
 
 - `tick`: host wall per tick over 20 ticks ending in a synchronize;
 - `profile`: `torch.profiler` over 5 ticks: device busy time per tick
@@ -12,7 +17,8 @@ then prints one JSON line each for:
   profiled wall, kernel launches per tick, and the top ops by device time
   and by count;
 - `parts`: the host wall of the tick's parts run alone — all its
-  threefry bit planes, one inbox kernel call, one coverage pass.
+  threefry bit planes, one inbox kernel call at its pick-mode shape, one
+  coverage pass (dense) or stats pass (pview).
 
 It runs on the card only.
 """
@@ -26,9 +32,9 @@ import time
 import torch
 
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch.bench import bench_params
-from corrosion_tpu_torch.models.cluster import ClusterSim
-from corrosion_tpu_torch.ops import inbox_cuda, swim
+from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
+from corrosion_tpu_torch.models.cluster import ClusterSim, PViewClusterSim
+from corrosion_tpu_torch.ops import inbox_cuda, swim, swim_pview
 from corrosion_tpu_torch.runtime.device import resolve_device
 
 
@@ -48,8 +54,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _planes(params: swim.SwimParams):
-    """Sizes of the threefry bit planes one tick draws (see tick_impl)."""
+def _planes(params):
+    """Sizes of the threefry bit planes one tick draws: the dense and the
+    partial-view `tick_impl` draw the same planes from their params."""
     n, ip = params.n, params.indirect_probes
     m = params.piggyback + params.antientropy
     sizes = [n * max(params.probe_candidates, 2)] * 2  # probe target pick
@@ -67,22 +74,33 @@ def _planes(params: swim.SwimParams):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, default=10_000)
+    ap.add_argument("--kernel", choices=("dense", "pview"), default="dense")
+    ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--mode", choices=("pick", "shift"), default="pick")
     args = ap.parse_args(argv)
     dev = resolve_device()
     impl = "cuda" if args.mode == "pick" else "gsort"
-    sim = ClusterSim(args.n, seed=0, seed_mode="fingers", device=dev,
-                     gossip_mode=args.mode, inbox_impl=impl,
-                     **bench_params(args.n))
-    sim.warm_device_loop(0.999, 5000, 5)
+    pview = args.kernel == "pview"
+    if pview:
+        args.n = args.n or PVIEW_N
+        sim = PViewClusterSim(args.n, seed=0, device=dev,
+                              gossip_mode=args.mode, inbox_impl=impl,
+                              **pview_params())
+    else:
+        args.n = args.n or 10_000
+        sim = ClusterSim(args.n, seed=0, seed_mode="fingers", device=dev,
+                         gossip_mode=args.mode, inbox_impl=impl,
+                         **bench_params(args.n))
+        sim.warm_device_loop(0.999, 5000, 5)
     sim.step(10)
 
     def tick():
         sim.step(1)
 
-    base = {"n": args.n, "mode": args.mode,
+    base = {"kernel": args.kernel, "n": args.n, "mode": args.mode,
             "device": torch.cuda.get_device_name(dev)}
+    if pview:
+        base["slots"] = sim.params.slots
     print(json.dumps({"what": "tick", **base,
                       "ms_per_tick": _wall_ms(tick, 20)}), flush=True)
 
@@ -116,8 +134,8 @@ def main(argv=None) -> None:
 
     sizes = _planes(sim.params)
     key = jr.PRNGKey(5)
-    p = bench_params(args.n)
-    g, m = args.n * 2, p["piggyback"] + p["antientropy"]
+    p = sim.params
+    g, m = args.n * p.fanout, p.piggyback + p.antientropy
     gen = torch.Generator(device=dev).manual_seed(0)
     dst = torch.randint(0, args.n, (g,), device=dev, generator=gen,
                         dtype=torch.int32)
@@ -126,16 +144,22 @@ def main(argv=None) -> None:
     keyv = torch.randint(4, 2**15, (g, m), device=dev, generator=gen,
                          dtype=torch.int32)
     ok = torch.rand((g, m), device=dev, generator=gen) < 0.8
+    st = sim.state
+    if pview:
+        check = ("stats_pass_ms", lambda: swim_pview._stats_impl(
+            p, st.slot_packed, st.alive, st.t))
+    else:
+        check = ("coverage_pass_ms",
+                 lambda: swim._coverage_impl(st.view, st.alive))
     print(json.dumps({
         "what": "parts", **base,
         "threefry_planes_per_tick": len(sizes),
         "threefry_ms_per_tick": _wall_ms(
             lambda: [jr.random_bits(key, s, dev) for s in sizes], 20),
         "inbox_kernel_ms": _wall_ms(
-            lambda: inbox_cuda.build_inbox(args.n, p["incoming_slots"], dst,
+            lambda: inbox_cuda.build_inbox(args.n, p.incoming_slots, dst,
                                            subj, keyv, ok), 100),
-        "coverage_pass_ms": _wall_ms(
-            lambda: swim._coverage_impl(sim.state.view, sim.state.alive), 20),
+        check[0]: _wall_ms(check[1], 5),
     }), flush=True)
 
 

@@ -84,7 +84,9 @@ def randint_from_planes(higher, lower, minval: int,
     """`_randint`'s modulus reduction of two uint32 planes to int32 values
     in [minval, maxval), with its uint32 wraparound emulated in int64."""
     span = maxval - minval if maxval > minval else 1
-    multiplier = pow(2**16 % span, 2) % span
+    # the reference squares 2^16 % span in uint32, so for spans past 2^16
+    # the square wraps (to 0)
+    multiplier = (((2**16 % span) ** 2) & _M32) % span
     off = ((higher % span) * multiplier) & _M32
     off = ((off + lower % span) & _M32) % span
     return (off + minval).to(torch.int32)

@@ -1,11 +1,30 @@
-"""Lane names of the SWIM kernel's device telemetry.
+"""The SWIM kernels' telemetry: lane names and the metrics registry.
 
-The port's own copy of the three tuples that fix the layout of
-`SwimState.events` and `SwimState.ring` (the JAX package keeps them in
-`corrosion_tpu/runtime/metrics.py`). The order is a wire format: every
-drained event vector and flight-ring row is indexed in it, so it must
-stay identical to the reference's (tests/test_torch_swim.py pins it).
+The port's own copy of what it needs from `corrosion_tpu/runtime/
+metrics.py`:
+
+- the three tuples that fix the layout of the `events` lane and the
+  flight `ring` of both kernels' states. The order is a wire format:
+  every drained event vector and flight-ring row is indexed in it, so it
+  must stay identical to the reference's (tests/test_torch_swim.py pins
+  it);
+- a minimal `Registry` of counters and gauges with a non-mutating
+  `snapshot`, and the process-global `METRICS` the simulation drivers
+  publish into, under the reference's series names:
+
+      corro.kernel.events.total{kernel, event}   counter: drained device
+                                                 event counts
+      corro.kernel.phase.seconds{kernel, phase}  gauge: latest phase time
+
+Instruments are mutated from whatever thread steps a simulation, so each
+carries its own lock (a `+=` is not atomic under the GIL). Histograms,
+the cardinality guard and Prometheus serving are not ported.
 """
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Tuple
 
 # Cumulative event lane, one int32 counter per protocol event (wraps
 # mod 2^32; drains take uint32 deltas).
@@ -41,3 +60,105 @@ FLIGHT_CENSUS = (
 
 # One ring row = event deltas then census, in this order.
 FLIGHT_LANES = KERNEL_EVENTS + FLIGHT_CENSUS
+
+# Per-kernel event lanes: the names a drained event vector is published
+# under (the CRDT merge engine's lane joins when that engine is ported).
+EVENTS_BY_KERNEL = {
+    "dense": KERNEL_EVENTS,
+    "pview": KERNEL_EVENTS,
+}
+
+LabelKey = Tuple[Tuple[str, str], ...]
+
+
+class Counter:
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value += amount
+
+
+class Gauge:
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = v
+
+
+class Registry:
+    """Counters and gauges keyed by (name, sorted labels)."""
+
+    def __init__(self):
+        self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
+        self._gauges: Dict[Tuple[str, LabelKey], Gauge] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, table, factory, name: str, labels: Dict[str, str]):
+        key = (name, tuple(sorted(labels.items())))
+        with self._lock:
+            inst = table.get(key)
+            if inst is None:
+                inst = table[key] = factory()
+        return inst
+
+    def counter(self, name: str, **labels: str) -> Counter:
+        return self._get(self._counters, Counter, name, labels)
+
+    def gauge(self, name: str, **labels: str) -> Gauge:
+        return self._get(self._gauges, Gauge, name, labels)
+
+    def snapshot(self) -> List[Tuple[str, str, Dict[str, str], float]]:
+        """Every series as (kind, name, labels, value) rows, read without
+        minting new series."""
+        with self._lock:
+            counters = list(self._counters.items())
+            gauges = list(self._gauges.items())
+        return (
+            [("counter", name, dict(labels), c.value)
+             for (name, labels), c in counters]
+            + [("gauge", name, dict(labels), g.value)
+               for (name, labels), g in gauges]
+        )
+
+
+METRICS = Registry()
+
+
+def record_phase_seconds(kernel: str, phase: str, seconds: float,
+                         registry: Registry = METRICS) -> None:
+    """Publish one phase timing (gauge: the latest measurement wins)."""
+    registry.gauge("corro.kernel.phase.seconds", kernel=kernel,
+                   phase=phase).set(seconds)
+
+
+def record_kernel_events(kernel: str, deltas,
+                         registry: Registry = METRICS) -> None:
+    """Publish one drained batch of device event counts, aligned with
+    `EVENTS_BY_KERNEL[kernel]`. Zero deltas mint no series."""
+    for name, d in zip(EVENTS_BY_KERNEL[kernel], deltas):
+        d = float(d)
+        if d:
+            registry.counter("corro.kernel.events.total", kernel=kernel,
+                             event=name).inc(d)
+
+
+def kernel_event_totals(
+    registry: Registry = METRICS,
+) -> Dict[str, Dict[str, float]]:
+    """{kernel: {event: total}} over the event-counter family."""
+    out: Dict[str, Dict[str, float]] = {}
+    for kind, name, labels, value in registry.snapshot():
+        if kind == "counter" and name == "corro.kernel.events.total":
+            out.setdefault(labels.get("kernel", "?"), {})[
+                labels.get("event", "?")] = value
+    return out

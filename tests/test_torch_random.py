@@ -42,6 +42,10 @@ def test_prngkey_split_fold_in(seed):
         ((2,), 1, 10_000),  # shift offsets at the slice's n
         ((37, 1), 0, 9_999),  # anti-entropy subjects, odd n
         ((5, 7), 3, 3),  # empty range returns minval
+        # spans past 2^16, where the reference's uint32 multiplier wraps
+        ((2,), 1, 262_144),  # shift offsets at the pview slice's n
+        ((50, 3), 0, 100_003),  # helpers, odd n past 2^16
+        ((40, 3), 0, 262_144),  # helpers, a power of two past 2^16
     ],
 )
 def test_randint_bit_equal(shape, lo, hi):
