@@ -41,7 +41,27 @@ result line is printed:
    last tick. Each prints its wall (which holds one stats pass per 10
    ticks), the wall per tick of 10 more ticks with no stats pass, and the
    median of three stats passes;
-8. `torch.profiler` must see exactly one device kernel, and no memset,
+8. the CRDT merge engine's decision program (`ops/crdt_merge.py::
+   _merge_kernel`) on the card against the same function on the CPU,
+   all ten outputs exactly equal: seeded inputs of 64, 4,096 and 2^20
+   rows (`crdt_bench.scale_inputs`), and batches marshaled from changes:
+   two digest ties that must come out ambiguous (`"y"*20` against
+   `"y"*30`, 2^53 against 2^53 + 1), one change, sentinels only, one pk
+   holding every change, and even-cl changes with a non-sentinel cid;
+9. the CRDT decision slice: `crdt_bench.run_rung` at 512, 4,096, 16,384
+   and 65,536 changes on the card. Every batch's decision (event counts,
+   decline, digest of the win mask, final_cl and both winner tables)
+   must equal `CRDT_REF` (the JAX package's engine) and the port's own
+   run on the CPU; the registry delta of `kernel="crdt_merge"` must equal
+   the batches' event lanes, `FLIGHT` must gain one frame per batch, and
+   each batch must read back once (`read_decisions.readbacks`; and
+   `torch.profiler` must see one device-to-host copy and one
+   host-to-device copy per input in a profiled batch, after the timed
+   ones). Prints per size the decisions per
+   second, each batch's split (marshal, host-to-device, device,
+   readback, rebuild) and the peak device memory, then the decision
+   program's device ms alone on 2^20 rows;
+10. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks); then the kernels line: per kernel
    its launches on the main paths (and per path), its median time over
@@ -65,13 +85,22 @@ import time
 import numpy as np
 import torch
 
+from corrosion_tpu_torch import crdt_bench
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
+from corrosion_tpu_torch.convert import crdt_inputs_to_torch
 from corrosion_tpu_torch.entry import entry
 from corrosion_tpu_torch.models.cluster import ClusterSim, PViewClusterSim
-from corrosion_tpu_torch.ops import _build, inbox_cuda, swim, swim_pview
+from corrosion_tpu_torch.ops import (
+    _build,
+    crdt_merge,
+    inbox_cuda,
+    swim,
+    swim_pview,
+)
 from corrosion_tpu_torch.runtime.metrics import (
+    CRDT_MERGE_EVENTS,
     KERNEL_EVENTS,
     kernel_event_totals,
 )
@@ -96,6 +125,47 @@ PVIEW_REF = {
     "shift": (380, (0.990509033203125, 2047.0, 80.0, 1.0, 0.0, 1.0),
               (1256559354, 0, 1175882126, 80677228, 90494823, 771930676,
                99614720, 0, 0, 0, 24903680, 0, 0, 0)),
+}
+
+# The JAX package's merge_table_array on the CPU over crdt_bench's
+# schedule (the reference script's own batches), chained as
+# crdt_bench.run_rung chains them: per size, per batch, its event lane
+# (CRDT_MERGE_EVENTS order), whether it was declined, and the sha256 of
+# its win mask, final_cl, cell_winner and clock_winner
+# (crdt_bench.outputs_digest). `python -m tests.test_torch_crdt` prints it.
+CRDT_REF = {
+    512: [
+        ((492, 471, 20, 0), False, "a01c3219a8f21ec0c7c25f3509ca4067"
+         "fd00f94430132daa9d47cddc62d12ca2"),
+        ((446, 382, 66, 0), False, "4386c5f0c197e6388cf47114fdd9a174"
+         "032a1e2d2b14553ca56c42dcb7bb5a2e"),
+        ((426, 334, 86, 0), False, "9b34c9ca8a1f8781285c44b547f59541"
+         "bb7d12e2ababd3bd0423bb1ef10758f7"),
+    ],
+    4096: [
+        ((2996, 2201, 1100, 0), False, "45e6566108f6a422597a03b30de0d3ae"
+         "6b8e37e7e27b86d1c29fe45994a4847e"),
+        ((1629, 764, 2467, 0), False, "c3579be398117ebd6263946c54988157"
+         "8d1b4dca8a5db91c28d460a6f1802fe5"),
+        ((1035, 452, 3061, 0), False, "887f27bf982bdc53ce1f34731111085e"
+         "4e7826133edeeed42438d5bb7391b41b"),
+    ],
+    16384: [
+        ((6337, 3722, 10047, 0), False, "1bb81df75f0e79efa8829693359bc2d2"
+         "c25f51e86cf7197aca611c043bfb7311"),
+        ((1783, 704, 14601, 0), False, "bca71de36b51b8436e89bff54af68051"
+         "c1906d083fb00aa37ddbe755da3fe031"),
+        ((995, 423, 15389, 0), False, "d2482d127f0983efd253f419b6025c6a"
+         "31f113897d9c13f50ae94bb0c1c4499a"),
+    ],
+    65536: [
+        ((9865, 5144, 55671, 0), False, "de6c82ebae192fac4e8cded7ceb2d94f"
+         "860ea4598dc102db807633debae149a5"),
+        ((1186, 752, 64350, 0), False, "9a45d270e47fa7ce38380e6f5e0be32a"
+         "56624fa632065ea0b5b8ea761ce3a063"),
+        ((424, 366, 65112, 0), False, "26ea4f962757e249b03dffa127190c77"
+         "98e7cabcea31fb6f1eddf7b066dccb17"),
+    ],
 }
 
 # (n, g, m, slots, p_ok, dst_spread): tests/test_inbox_impls.py's cases
@@ -383,6 +453,122 @@ def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
     return out
 
 
+def crdt_parity_cases() -> list:
+    """(name, decision-program inputs, must be ambiguous) for the card
+    against the CPU."""
+    cases = [(f"rows_{r}", crdt_bench.scale_inputs(r, i), None)
+             for i, r in enumerate((64, 4096, 2**20))]
+    site, sent = bytes([1]) * 16, crdt_merge.SENTINEL
+
+    def ch(row, cid, val, cl, cv, dbv):
+        return crdt_bench.Change(
+            "kv", crdt_bench.pk_bytes(row), cid, val, cv, dbv, 0, site, cl,
+            crdt_bench.Timestamp.from_unix(dbv))
+
+    rng = np.random.default_rng(5)
+    batches = [
+        ("tie_long_text", [ch(1, "a", "y" * 20, 1, 2, 1),
+                           ch(1, "a", "y" * 30, 1, 2, 2)], True),
+        ("tie_2^53", [ch(1, "b", 2**53, 1, 1, 1),
+                      ch(1, "b", 2**53 + 1, 1, 1, 2)], True),
+        ("one_change", [ch(1, "a", "x", 1, 1, 1)], False),
+        ("sentinels_only", [ch(int(rng.integers(1, 20)), sent, None,
+                               int(rng.integers(1, 6)), 1, j + 1)
+                            for j in range(300)], False),
+        ("one_pk", [ch(7, *(
+            (sent, None, int(rng.integers(1, 6)), 1) if rng.random() < 0.1
+            else (str(rng.choice(["a", "b", "c"])), int(rng.integers(0, 9)),
+                  int(rng.choice([1, 1, 3, 5])), int(rng.integers(1, 5)))),
+            j + 1) for j in range(500)], None),
+        # tests/test_crdt_array.py's even-cl changes with a non-sentinel cid
+        ("even_cl_cid_0", [ch(1, "a", "ghost", 2, 3, 1)], False),
+        ("even_cl_cid_1", [ch(1, "a", "ghost", 2, 3, 1),
+                           ch(1, "b", 7, 3, 1, 2)], False),
+        ("even_cl_cid_2", [ch(1, "a", "x", 1, 1, 1),
+                           ch(1, "b", "ghost", 2, 9, 2),
+                           ch(1, "a", "y", 3, 1, 3)], False),
+        ("even_cl_cid_3", [ch(1, sent, None, 2, 1, 1),
+                           ch(1, "a", "ghost", 2, 5, 2)], False),
+    ]
+    for name, batch, ambiguous in batches:
+        st = {c.pk: crdt_bench.fresh_state() for c in batch}
+        cases.append((name, crdt_merge.marshal(batch, st).arrays, ambiguous))
+    return cases
+
+
+def phase_crdt_parity(dev) -> dict:
+    names = []
+    for name, arrays, ambiguous in crdt_parity_cases():
+        got, want = (crdt_merge._merge_kernel(**crdt_inputs_to_torch(
+            arrays, d)) for d in (dev, "cpu"))
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.device.type != "cuda" or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"crdt decision program: output {i} "
+                                     f"differs between the card and the "
+                                     f"CPU on {name}")
+        if ambiguous is not None and bool(want[8]) != ambiguous:
+            raise AssertionError(f"crdt case {name}: ambiguous is "
+                                 f"{bool(want[8])}, not {ambiguous}")
+        names.append(f"{name}:{len(arrays['grp'])}")
+    return {"phase": "crdt_parity", "ok": True, "cases": names}
+
+
+def _decision(rec) -> tuple:
+    return tuple(rec["events"]), rec["declined"], rec["digest"]
+
+
+def phase_crdt_slice(dev) -> dict:
+    sizes = []
+    for size, warm, batches in crdt_bench.schedule():
+        before = kernel_event_totals().get("crdt_merge", {})
+        frames = FLIGHT.window(1, kernel="crdt_merge")
+        tick0 = frames[-1]["tick"] if frames else -1
+        reads0 = crdt_merge.read_decisions.readbacks
+        run = crdt_bench.run_rung(size, dev, (warm, batches))
+        reads = crdt_merge.read_decisions.readbacks - reads0
+        after = kernel_event_totals()["crdt_merge"]
+        tick1 = FLIGHT.window(1, kernel="crdt_merge")[-1]["tick"]
+        recs = [run["warm"]] + run["batches"]
+        lane = np.sum([[0, 0, 0, r["events"][3]] if r["declined"]
+                       else r["events"] for r in recs], axis=0)
+        published = [after.get(e, 0.0) - before.get(e, 0.0)
+                     for e in CRDT_MERGE_EVENTS]
+        cpu = crdt_bench.run_rung(size, "cpu", (warm, batches))
+        got = [_decision(r) for r in recs]
+        if (got[1:] != CRDT_REF[size]
+                or got != [_decision(r) for r in [cpu["warm"]]
+                           + cpu["batches"]]):
+            raise AssertionError(f"crdt rung {size}: the card decided "
+                                 f"{got[1:]}, the reference "
+                                 f"{CRDT_REF[size]}, the CPU "
+                                 f"{[_decision(r) for r in cpu['batches']]}")
+        if (published != [float(v) for v in lane] or tick1 - tick0 != len(recs)
+                or reads != len(recs)):
+            raise AssertionError(f"crdt rung {size} telemetry: published "
+                                 f"{published}, lanes {lane.tolist()}, "
+                                 f"{tick1 - tick0} frames and {reads} "
+                                 f"readbacks for {len(recs)} batches")
+        split = ("wall_ms", "marshal_ms", "h2d_ms", "device_ms",
+                 "readback_ms", "rebuild_ms", "rows")
+        out = {"phase": "crdt_rung", "size": size,
+               "decisions_per_s": run["decisions_per_s"],
+               "batches": [{k: r[k] for k in split} for r in run["batches"]],
+               "peak_mem_bytes": run["peak_mem_bytes"], "ok": True}
+        emit(out)
+        sizes.append(size)
+    prof = crdt_bench.profile_batch(dev, sizes[0])
+    if prof["dtoh_copies"] != 1 or prof["htod_copies"] != 13:
+        raise AssertionError(f"a profiled crdt batch made "
+                             f"{prof['htod_copies']} host-to-device and "
+                             f"{prof['dtoh_copies']} device-to-host copies, "
+                             f"not one per input and one readback")
+    return {"phase": "crdt_slice", "ok": True, "sizes": sizes,
+            "profiled_batch": {k: prof[k] for k in (
+                "size", "device_ops", "htod_copies", "dtoh_copies")},
+            "scale_rows": crdt_bench.SCALE_ROWS,
+            "scale_device_ms": crdt_bench.scale_point_ms(dev)}
+
+
 def phase_kernels(dev, launches: dict, max_err: dict) -> dict:
     """`launches` maps each kernel to {main path: launches}."""
     kernels = kernels_per_call(*slice_inbox_case(0, dev))
@@ -429,6 +615,8 @@ def main() -> int:
     pview_pick = phase_pview_slice(dev, "pick")
     emit(pview_pick)
     emit(phase_pview_slice(dev, "shift"))
+    emit(phase_crdt_parity(dev))
+    emit(phase_crdt_slice(dev))
     paths = {"dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"]}
     emit(phase_kernels(dev, {"inbox_build": paths},

@@ -3,7 +3,10 @@
 The JAX side hands over `np.asarray` of each field, so nothing here
 imports JAX: the reference's `SwimState` or `PViewState` becomes a dict
 of numpy arrays with the same field names, a key becomes a [2] uint32
-array, and `SwimParams` or `PViewParams` becomes its `_asdict()`.
+array, and `SwimParams` or `PViewParams` becomes its `_asdict()`. The
+CRDT merge engine has no weights and no state on the device: what it
+carries across is the reference `_merge_kernel`'s inputs, the thirteen
+row arrays and two segment counts.
 """
 
 from __future__ import annotations
@@ -84,3 +87,36 @@ def pview_params_from_dict(d: dict) -> PViewParams:
     """`PViewParams` from the reference's `_asdict()`, with "pallas"
     becoming "cuda" as in `params_from_dict`."""
     return PViewParams(**_port_params(d))
+
+
+# The row inputs of `ops/crdt_merge.py::_merge_kernel`, in its order.
+CRDT_INPUTS = ("grp", "cellg", "cl", "cv", "d0", "d1", "d2", "d3", "exact",
+               "fake", "pos", "is_sent", "valid")
+_CRDT_BOOL = frozenset(("exact", "fake", "is_sent", "valid"))
+
+
+def crdt_inputs_to_torch(arrays, device) -> dict:
+    """The keyword arguments of `ops.crdt_merge._merge_kernel` on `device`
+    from the reference `_merge_kernel`'s inputs: `arrays` maps each name
+    of `CRDT_INPUTS` to a 1-D numpy array (all of one length; bool for
+    exact, fake, is_sent and valid, int32 for the rest) and holds
+    `num_groups` and `num_cells`. One host-to-device copy per array."""
+    want = set(CRDT_INPUTS) | {"num_groups", "num_cells"}
+    if set(arrays) != want:
+        raise ValueError(f"crdt inputs differ: missing "
+                         f"{sorted(want - set(arrays))}, unexpected "
+                         f"{sorted(set(arrays) - want)}")
+    dev = resolve_device(device)
+    n = len(arrays["grp"])
+    out = {}
+    for name in CRDT_INPUTS:
+        a = arrays[name]
+        dtype = np.bool_ if name in _CRDT_BOOL else np.int32
+        if not isinstance(a, np.ndarray) or a.dtype != dtype \
+                or a.shape != (n,):
+            raise ValueError(f"crdt input {name}: need a [{n}] "
+                             f"{np.dtype(dtype)} array")
+        out[name] = torch.from_numpy(a).to(dev)
+    out["num_groups"] = int(arrays["num_groups"])
+    out["num_cells"] = int(arrays["num_cells"])
+    return out

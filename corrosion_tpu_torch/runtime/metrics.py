@@ -1,16 +1,17 @@
-"""The SWIM kernels' telemetry: lane names and the metrics registry.
+"""The kernels' telemetry: lane names and the metrics registry.
 
 The port's own copy of what it needs from `corrosion_tpu/runtime/
 metrics.py`:
 
 - the three tuples that fix the layout of the `events` lane and the
-  flight `ring` of both kernels' states. The order is a wire format:
-  every drained event vector and flight-ring row is indexed in it, so it
-  must stay identical to the reference's (tests/test_torch_swim.py pins
-  it);
+  flight `ring` of both SWIM kernels' states, and the CRDT merge
+  engine's event lane. The order is a wire format: every drained event
+  vector and flight-ring row is indexed in it, so it must stay identical
+  to the reference's (tests/test_torch_swim.py and
+  tests/test_torch_crdt.py pin it);
 - a minimal `Registry` of counters and gauges with a non-mutating
   `snapshot`, and the process-global `METRICS` the simulation drivers
-  publish into, under the reference's series names:
+  and the CRDT merge engine publish into, under the reference's series names:
 
       corro.kernel.events.total{kernel, event}   counter: drained device
                                                  event counts
@@ -61,11 +62,21 @@ FLIGHT_CENSUS = (
 # One ring row = event deltas then census, in this order.
 FLIGHT_LANES = KERNEL_EVENTS + FLIGHT_CENSUS
 
+# The CRDT merge engine's lane (`ops/crdt_merge.py::_merge_kernel`):
+# per-batch decision outcomes, read back with the decisions themselves.
+CRDT_MERGE_EVENTS = (
+    "decide_won",  # changes that won their cell/row decision
+    "decide_transition",  # causal-length transitions among the wins
+    "decide_stale",  # changes beaten by local state or the batch
+    "decide_ambiguous",  # undecidable digest ties (host-engine fallback)
+)
+
 # Per-kernel event lanes: the names a drained event vector is published
-# under (the CRDT merge engine's lane joins when that engine is ported).
+# under.
 EVENTS_BY_KERNEL = {
     "dense": KERNEL_EVENTS,
     "pview": KERNEL_EVENTS,
+    "crdt_merge": CRDT_MERGE_EVENTS,
 }
 
 LabelKey = Tuple[Tuple[str, str], ...]

@@ -12,6 +12,7 @@ held to rtol 1e-6 (float32 sums in another order, as in
 tests/test_stats_blocked.py).
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -233,3 +234,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_port_source_names_neither_jax_nor_the_jax_package():
+    """No source line of the port, or of chip_smoke.py, imports jax or
+    names a module of `corrosion_tpu`, even inside a function body that
+    the import check never runs (a lazy import of the store, say)."""
+    root = Path(__file__).resolve().parent.parent
+    bad = re.compile(r"\bimport jax\b|\bfrom jax\b|\bcorrosion_tpu\."
+                     r"|\bcorrosion_tpu import\b")
+    files = sorted((root / "corrosion_tpu_torch").rglob("*.py")) + [
+        root / "chip_smoke.py"]
+    hits = [f"{p.relative_to(root)}:{i}: {line.strip()}"
+            for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if bad.search(line)]
+    assert not hits, hits
+    assert bad.search("    from corrosion_tpu.store.crdt import x")
+    assert not bad.search("from corrosion_tpu_torch.ops import crdt_merge")
