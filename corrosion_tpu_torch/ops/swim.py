@@ -1053,3 +1053,9 @@ def stats_and_events(state: SwimState):
     }
     return stats, ev, flight
 
+
+def membership_stats(state: SwimState) -> dict:
+    """Convergence metrics over live observers (coverage, detected,
+    false_positive), in one device-to-host copy."""
+    return stats_and_events(state)[0]
+

@@ -9,22 +9,27 @@ metrics.py`:
   vector and flight-ring row is indexed in it, so it must stay identical
   to the reference's (tests/test_torch_swim.py and
   tests/test_torch_crdt.py pin it);
-- a minimal `Registry` of counters and gauges with a non-mutating
-  `snapshot`, and the process-global `METRICS` the simulation drivers
-  and the CRDT merge engine publish into, under the reference's series names:
+- a minimal `Registry` of counters, gauges and bucketed histograms with
+  a non-mutating `snapshot`, and the process-global `METRICS` the
+  simulation drivers, the CRDT merge engine and the SWIM host path
+  (`agent/membership.py`, `net/transport.py`) publish into, under the
+  reference's series names, among them:
 
       corro.kernel.events.total{kernel, event}   counter: drained device
                                                  event counts
       corro.kernel.phase.seconds{kernel, phase}  gauge: latest phase time
+      corro.gossip.*                             the prober's counters
+      corro.transport.rtt.seconds{addr}          histogram: probe RTTs
 
 Instruments are mutated from whatever thread steps a simulation, so each
-carries its own lock (a `+=` is not atomic under the GIL). Histograms,
-the cardinality guard and Prometheus serving are not ported.
+carries its own lock (a `+=` is not atomic under the GIL). The
+cardinality guard and Prometheus serving are not ported.
 """
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_right
 from typing import Dict, List, Tuple
 
 # Cumulative event lane, one int32 counter per protocol event (wraps
@@ -106,12 +111,37 @@ class Gauge:
             self.value = v
 
 
+_DEFAULT_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0
+)
+
+
+class Histogram:
+    """Counts per upper bucket bound (one overflow bucket), sum and count."""
+
+    __slots__ = ("buckets", "counts", "total", "count", "_lock")
+
+    def __init__(self, buckets=_DEFAULT_BUCKETS):
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)
+        self.total = 0.0
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self.counts[bisect_right(self.buckets, v)] += 1
+            self.total += v
+            self.count += 1
+
+
 class Registry:
-    """Counters and gauges keyed by (name, sorted labels)."""
+    """Counters, gauges and histograms keyed by (name, sorted labels)."""
 
     def __init__(self):
         self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
         self._gauges: Dict[Tuple[str, LabelKey], Gauge] = {}
+        self._histograms: Dict[Tuple[str, LabelKey], Histogram] = {}
         self._lock = threading.Lock()
 
     def _get(self, table, factory, name: str, labels: Dict[str, str]):
@@ -128,18 +158,29 @@ class Registry:
     def gauge(self, name: str, **labels: str) -> Gauge:
         return self._get(self._gauges, Gauge, name, labels)
 
+    def histogram(self, name: str, **labels: str) -> Histogram:
+        return self._get(self._histograms, Histogram, name, labels)
+
     def snapshot(self) -> List[Tuple[str, str, Dict[str, str], float]]:
         """Every series as (kind, name, labels, value) rows, read without
-        minting new series."""
+        minting new series; a histogram gives two rows, `<name>_count`
+        and `<name>_sum`."""
         with self._lock:
             counters = list(self._counters.items())
             gauges = list(self._gauges.items())
-        return (
+            hists = list(self._histograms.items())
+        out = (
             [("counter", name, dict(labels), c.value)
              for (name, labels), c in counters]
             + [("gauge", name, dict(labels), g.value)
                for (name, labels), g in gauges]
         )
+        for (name, labels), h in hists:
+            with h._lock:
+                cnt, tot = h.count, h.total
+            out.append(("histogram", name + "_count", dict(labels), cnt))
+            out.append(("histogram", name + "_sum", dict(labels), tot))
+        return out
 
 
 METRICS = Registry()

@@ -10,19 +10,21 @@ frames into a bounded history stamped with the drain's wall clock.
 takes the instance lock, since sims publish from whatever thread steps
 them.
 
-Not ported here: `merge_records` and its file locks, which serve the
-measurement scripts.
+`merge_records` is the measurement scripts' replace-by-key merge of
+records into a shared JSON list file, serialized across processes by a
+sidecar `flock`.
 """
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import tempfile
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from corrosion_tpu_torch.runtime.metrics import (
     FLIGHT_CENSUS,
@@ -31,6 +33,42 @@ from corrosion_tpu_torch.runtime.metrics import (
     METRICS,
     Registry,
 )
+
+
+def merge_records(
+    path: str, records: Sequence[dict], key: str = "rung"
+) -> List[dict]:
+    """Replace-by-``key`` merge of ``records`` into the JSON list at
+    ``path`` (existing records whose key value is re-measured are
+    dropped; everything else is preserved). Returns the merged list.
+
+    Every new record must carry ``key``: a keyless record would otherwise
+    match (and delete) unrelated keyless entries, so it raises instead.
+    The read-merge-write holds an exclusive ``flock`` on the sidecar
+    ``<path>.lock`` (a lock on the file itself would not survive the
+    ``os.replace``), so two processes recording at once keep both's
+    records."""
+    missing = [r for r in records if key not in r]
+    if missing:
+        raise KeyError(
+            f"record(s) missing merge key {key!r}: {missing[:2]!r}"
+        )
+    with open(path + ".lock", "a") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        try:
+            with open(path) as f:
+                existing = json.load(f)
+        except (OSError, ValueError):
+            existing = []
+        mine = {r[key] for r in records}
+        merged = [
+            r for r in existing if not (key in r and r[key] in mine)
+        ] + list(records)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(merged, f, indent=2)
+        os.replace(tmp, path)
+    return merged
 
 
 def frames_from_ring(ring, t: int):

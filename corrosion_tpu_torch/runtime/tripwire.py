@@ -1,0 +1,68 @@
+"""Tripwire: the cooperative shutdown signal every loop checks — the
+port's copy of `Tripwire` and `Outcome` from
+`corrosion_tpu/runtime/tripwire.py` (its `TaskTracker` and the signal
+hookup `Tripwire.from_signals` are not ported).
+
+The SWIM prober's loops (`agent/membership.py`) run until the tripwire
+fires; `preemptible` runs an awaitable unless the tripwire fires first.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import contextlib
+from enum import Enum
+from typing import Awaitable, Optional, TypeVar
+
+from corrosion_tpu_torch.runtime.records import FLIGHT
+
+T = TypeVar("T")
+
+
+class Outcome(Enum):
+    COMPLETED = "completed"
+    PREEMPTED = "preempted"
+
+
+class Tripwire:
+    def __init__(self):
+        self._event = asyncio.Event()
+
+    def trip(self, incident: Optional[str] = None) -> None:
+        """Fire the tripwire. `incident` names an abnormal trip (a signal,
+        an operator kill): the flight recorder's frame history is then
+        dumped to a black-box file first. A graceful shutdown trips with
+        no incident and dumps nothing."""
+        if incident and not self._event.is_set():
+            FLIGHT.snapshot_incident(incident)  # never raises
+        self._event.set()
+
+    @property
+    def tripped(self) -> bool:
+        return self._event.is_set()
+
+    async def wait(self) -> None:
+        await self._event.wait()
+
+    async def preemptible(self, aw: Awaitable[T]):
+        """Run `aw` unless the tripwire fires first.
+
+        Returns (Outcome.COMPLETED, result) or (Outcome.PREEMPTED, None);
+        the inner awaitable is cancelled on preemption.
+        """
+        task = asyncio.ensure_future(aw)
+        trip_task = asyncio.ensure_future(self._event.wait())
+        try:
+            done, _ = await asyncio.wait(
+                {task, trip_task}, return_when=asyncio.FIRST_COMPLETED
+            )
+            if task in done:
+                return Outcome.COMPLETED, task.result()
+            task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await task
+            return Outcome.PREEMPTED, None
+        finally:
+            trip_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await trip_task

@@ -1,0 +1,51 @@
+"""Node identity: ActorId (a UUID), ClusterId, Actor — the port's copy of
+`corrosion_tpu/types/actor.py`.
+
+An Actor carries a gossip address, an NTP64 timestamp, a cluster id and a
+bump counter that `renew()` advances when the node rejoins after being
+declared down; (ts, bump) orders the identities of one id.
+"""
+
+from __future__ import annotations
+
+import uuid
+from dataclasses import dataclass, field, replace
+
+from corrosion_tpu_torch.types.base import Timestamp
+
+
+@dataclass(frozen=True, order=True)
+class ActorId:
+    bytes16: bytes = b"\x00" * 16
+
+    def __post_init__(self):
+        if len(self.bytes16) != 16:
+            raise ValueError("ActorId must be 16 bytes")
+
+    def as_uuid(self) -> uuid.UUID:
+        return uuid.UUID(bytes=self.bytes16)
+
+    def __str__(self) -> str:
+        return str(self.as_uuid())
+
+
+@dataclass(frozen=True, order=True)
+class ClusterId:
+    value: int = 0  # u16
+
+    def __post_init__(self):
+        if not (0 <= self.value <= 0xFFFF):
+            raise ValueError("ClusterId must fit u16")
+
+
+@dataclass(frozen=True)
+class Actor:
+    id: ActorId
+    addr: str  # gossip address
+    ts: Timestamp = field(default_factory=Timestamp.zero)
+    cluster_id: ClusterId = field(default_factory=ClusterId)
+    bump: int = 0  # u16 renewal counter
+
+    def renew(self) -> "Actor":
+        """New identity for rejoin after being declared down."""
+        return replace(self, ts=Timestamp.now(), bump=(self.bump + 1) & 0xFFFF)
