@@ -84,13 +84,41 @@ result line is printed:
    members, and 50 crashes it must down exactly (FP 0, cluster size
    99,951). Prints absorb and detect seconds, the median ms of five
    `refresh()` calls, the peak device memory and the `nvidia-smi` line;
-13. `torch.profiler` must see exactly one device kernel, and no memset,
+13. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
+   JAX package's run on the CPU: `dense_100k.run` (the program of
+   `scripts/dense_100k.py`: 16 feeds, chunk 25, shift) and `bench.py`'s
+   configuration (pick with the inbox kernel, check every 5, device
+   loop) must each reach the reference's stable tick, its three stats
+   bit for bit in float32 and its 14 event totals, and the kernel must
+   be launched once per tick of the pick run (G = 65,536 packets of
+   m = 5, slots 8), whose last launch's inputs it keeps for the kernels
+   line;
+14. `dense_100k_pick`, the north star on the bench's path:
+   `bench.measure` at n=100,000 (`bench_params`: 4 feeds of 6,250; pick
+   with the inbox kernel, fingers, target 0.999, check every 5) must
+   converge with FP 0 and coverage >= 0.999, with one kernel launch per
+   timed tick (G = 200,000 packets of m = 5, slots 8). Prints the stable
+   tick, wall s, ms per tick, the peak device memory and the launches,
+   and keeps the inputs of the run's last launch for the kernels line;
+15. `dense_100k_shift`: `dense_100k.run` at n=100,000, chunk 25 (the
+   reference script's program) must converge with FP 0; prints ticks,
+   init s, first-dispatch s, convergence wall s, ms per tick and the
+   peak device memory;
+16. `ladder`: `scale_ladder.py`'s rungs 1, 2 and 3 (n=128 with 5 %
+   churn; n=1,000, fanout 3, suspicion 3/6/9 with one crash; n=10,000
+   with 1 % churn) on the card: every tick count, detection, crash
+   count, false positive and coverage must equal `LADDER_REF`, the JAX
+   package's rungs through the same code on the CPU. Wall times are
+   printed;
+17. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
    kernel its launches on the main paths (and per path), its median time
    over 100 launches at the dense slice's shapes, the plain version's, and the
-   bound; for the inbox kernel also per shape of `inbox_bench.SHAPES` its
+   bound; for the inbox kernel also per shape of `inbox_bench.SHAPES`,
+   and at the inputs of `dense_ref` pick's and `dense_100k_pick`'s last
+   launches (each checked equal to the plain version first), its
    ms, device ms, plain ms, bound and host us per call, the floor of
    CUDA-event timing, the kernel's cluster size (its `kCluster`) and its
    device kernels per call. Every bound is computed from this run's
@@ -102,20 +130,24 @@ The last line is `{"ok": true, "device": {"platform": "gpu", ...}}`.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from corrosion_tpu_torch import bench
 from corrosion_tpu_torch import bridge_scale as bs
-from corrosion_tpu_torch import crdt_bench
+from corrosion_tpu_torch import crdt_bench, dense_100k
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import random as jr
+from corrosion_tpu_torch import scale_ladder
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
 from corrosion_tpu_torch.convert import crdt_inputs_to_torch
 from corrosion_tpu_torch.entry import entry
@@ -203,6 +235,40 @@ CRDT_REF = {
 BRIDGE_REF = {
     64: "3e9d1c497d0ab4e7685ee8f4a259f784ad103091d9167f3cd33ae7e7afcb7a02",
     192: "371730e647162f9d833cee313e1214df45c4211ed5167c772fda50ecd4092577",
+}
+
+# The JAX package on the CPU at n=32,768 (`python -m
+# tests.test_torch_dense_scale`): per configuration, the stable tick, the
+# three stats (coverage, detected, false_positive) as float32 and the
+# event lane (KERNEL_EVENTS order) there. "shift": `dense_100k`'s program
+# through `_tick_n_impl` (chunk 25); "pick": `bench.py`'s configuration
+# through `ClusterSim.run_until_stable_device` with the "gsort" inbox.
+DENSE_REF_N = 32_768
+DENSE_REF = {
+    "shift": (100, (1.0, 0.0, 0.0),
+              (25099364, 0, 23445992, 1653372, 9771600, 52282923, 3276800,
+               0, 0, 0, 409600, 0, 0, 0)),
+    "pick": (95, (0.9992537498474121, 0.0, 0.0),
+             (25604728, 0, 18923985, 6680743, 10200323, 12415754, 3112960,
+              0, 0, 0, 389120, 0, 0, 0)),
+}
+DENSE_100K_N = 100_000
+
+# `scale_ladder.checked` of the JAX package's rungs 1, 2 and 3 (n=10,000)
+# through the same rung code on the CPU (`python -m tests.test_torch_ladder`)
+LADDER_REF = {
+    "1": {"convergence_ticks": 11, "detect_all_ticks": 21,
+          "churn_crashed": 6, "false_positive_healthy": 0.0,
+          "false_positive_after_churn": 0.0},
+    "2/3": {"convergence_ticks": 61, "detect_one_ticks": 15,
+            "false_positive": 0.0},
+    "2/6": {"convergence_ticks": 61, "detect_one_ticks": 18,
+            "false_positive": 0.0},
+    "2/9": {"convergence_ticks": 61, "detect_one_ticks": 21,
+            "false_positive": 0.0},
+    "3": {"convergence_ticks": 61, "detect_all_ticks": 37,
+          "churn_crashed": 100, "false_positive_healthy": 0.0,
+          "false_positive_after_churn": 0.0, "coverage": 1.0},
 }
 
 # (n, g, m, slots, p_ok, dst_spread): tests/test_inbox_impls.py's cases
@@ -293,29 +359,44 @@ def kernels_per_call(n, slots, args) -> int:
     return len(on_device)
 
 
-def kernel_measurements() -> dict:
+def kernel_measurements(real_cases: str = "") -> dict:
     """The profiled and timed part of the kernels line: the device
     operations in one `build_inbox` call, the times per shape of
-    `inbox_bench.SHAPES`, and the floor of CUDA-event timing."""
+    `inbox_bench.SHAPES` and, where `real_cases` names a file saved by
+    `fresh_kernel_measurements`, at each of its launches' inputs (each
+    checked equal to the plain version first); and the floor of
+    CUDA-event timing."""
     dev = torch.device("cuda:0")
-    return {"kernels": kernels_per_call(*slice_inbox_case(0, dev)),
-            "shapes": ib.time_shapes(inbox_cuda.build_inbox,
-                                     inbox_cuda.build_inbox_plain, dev),
+    kernels = kernels_per_call(*slice_inbox_case(0, dev))
+    shapes = ib.time_shapes(inbox_cuda.build_inbox,
+                            inbox_cuda.build_inbox_plain, dev)
+    for case in torch.load(real_cases) if real_cases else []:
+        shapes.append(ib.time_case(
+            inbox_cuda.build_inbox, inbox_cuda.build_inbox_plain,
+            case["name"], case["n"], case["slots"],
+            [a.to(dev) for a in case["args"]]))
+    return {"kernels": kernels, "shapes": shapes,
             "event_floor_ms": ib.event_floor_ms()}
 
 
-def fresh_kernel_measurements() -> dict:
+def fresh_kernel_measurements(real_cases) -> dict:
     """`kernel_measurements` in a fresh process. With torch 2.11 and CUDA
     12.8 on the H100 machines this runs on, the profiler keeps a kernel's
     device record only in sessions that start soon after a process's
     first one: later, the record falls outside the session's window
     (Kineto counts it out-of-range), and this run profiles again minutes
-    after the CRDT slice's profiled batch."""
-    code = ("import json, chip_smoke as c; "
-            "print(json.dumps(c.kernel_measurements()))")
-    out = subprocess.run([sys.executable, "-c", code],
-                         cwd=Path(__file__).resolve().parent,
-                         capture_output=True, text=True, timeout=600)
+    after the CRDT slice's profiled batch. `real_cases` (each a path's
+    name, n, slots and four inputs) go to it through a temporary file."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "real_cases.pt")
+        torch.save([{"name": name, "n": n, "slots": slots,
+                     "args": [a.cpu() for a in args]}
+                    for name, n, slots, args in real_cases], path)
+        code = ("import json, sys, chip_smoke as c; "
+                "print(json.dumps(c.kernel_measurements(sys.argv[1])))")
+        out = subprocess.run([sys.executable, "-c", code, path],
+                             cwd=Path(__file__).resolve().parent,
+                             capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise AssertionError(f"kernel_measurements in a fresh process: "
                              f"{out.stderr[-2000:]}")
@@ -477,17 +558,18 @@ def phase_pview_slice(dev, gossip_mode: str) -> dict:
     return out
 
 
-def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
-    params = dict(bench_params(SLICE_N), gossip_mode=gossip_mode,
+def _dense_boot(dev, n: int, gossip_mode: str, inbox_impl: str):
+    """`bench.py`'s configuration at n, booted to 99.9 % coverage through
+    `run_until_stable_device` (check every 5) after a warm-up sim: (its
+    record, the sim)."""
+    params = dict(bench_params(n), gossip_mode=gossip_mode,
                   inbox_impl=inbox_impl)
-    warm = ClusterSim(SLICE_N, seed=1, seed_mode="fingers", device=dev,
-                      **params)
+    warm = ClusterSim(n, seed=1, seed_mode="fingers", device=dev, **params)
     warm.warm_device_loop(0.999, 5000, 5)
     warm.step(5)  # first launches of every op outside the clock
     warm.stats()
     del warm
-    sim = ClusterSim(SLICE_N, seed=0, seed_mode="fingers", device=dev,
-                     **params)
+    sim = ClusterSim(n, seed=0, seed_mode="fingers", device=dev, **params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     inbox_cuda.build_inbox.launches = 0
@@ -498,14 +580,20 @@ def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
     launches = inbox_cuda.build_inbox.launches
     stats = sim.stats()
     out = {
-        "phase": f"slice_{gossip_mode}", "n": SLICE_N, "gossip_mode":
-        gossip_mode, "inbox_impl": inbox_impl, "stable_tick": tick,
-        "coverage": stats["coverage"], "false_positive":
-        stats["false_positive"], "wall_s": wall,
+        "n": n, "gossip_mode": gossip_mode, "inbox_impl": inbox_impl,
+        "stable_tick": tick, "coverage": stats["coverage"],
+        "false_positive": stats["false_positive"], "wall_s": wall,
         "ms_per_tick": 1e3 * wall / max(1, sim.ticks),
         "inbox_kernel_launches": launches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
+    return out, stats, sim
+
+
+def phase_slice(dev, gossip_mode: str, inbox_impl: str) -> dict:
+    rec, stats, sim = _dense_boot(dev, SLICE_N, gossip_mode, inbox_impl)
+    out = {"phase": f"slice_{gossip_mode}", **rec}
+    tick, launches = rec["stable_tick"], rec["inbox_kernel_launches"]
     expect = SLICE_EXPECT[gossip_mode]
     want_launches = sim.ticks if inbox_impl == "cuda" and \
         gossip_mode == "pick" else 0
@@ -709,9 +797,148 @@ def phase_bridge_scale(dev) -> dict:
             "nvidia_smi": ib.nvidia_smi()}
 
 
-def phase_kernels(launches: dict, max_err: dict) -> dict:
-    """`launches` maps each kernel to {main path: launches}."""
-    measured = fresh_kernel_measurements()
+def _dense_ref_check(name: str, tick, stats: dict, events) -> dict:
+    """The run against `DENSE_REF[name]`: the stable tick, the three
+    stats bit for bit in float32, the 14 event totals."""
+    ref_tick, ref_stats, ref_events = DENSE_REF[name]
+    got = [np.float32(stats[k]) for k in ("coverage", "detected",
+                                          "false_positive")]
+    if (tick != ref_tick or got != [np.float32(v) for v in ref_stats]
+            or tuple(events) != ref_events):
+        raise AssertionError(f"dense_ref {name}: tick {tick}, stats {got}, "
+                             f"events {list(events)}; the reference: "
+                             f"{DENSE_REF[name]}")
+    return {"stable_tick": tick, "stats": [float(v) for v in got],
+            "events": dict(zip(KERNEL_EVENTS, events))}
+
+
+@contextlib.contextmanager
+def last_inbox_dispatch():
+    """Within the block, `swim.dispatch_inbox` keeps a reference to its
+    inputs (no copy): the dict yielded holds the last call's as "args"."""
+    last = {}
+    dispatch = swim.dispatch_inbox
+
+    def keep_last(*args):
+        last["args"] = args
+        return dispatch(*args)
+
+    swim.dispatch_inbox = keep_last
+    try:
+        yield last
+    finally:
+        swim.dispatch_inbox = dispatch
+
+
+def _real_case(name: str, last: dict, n_want: int) -> tuple:
+    """(name, n, slots, inputs) of a path's last inbox launch, which must
+    be at that path's shape: G = 2n groups of m = 5, slots 8."""
+    _, n, slots, *args = last["args"]
+    shape = (n, args[0].shape[0], args[1].shape[1], slots)
+    if shape != (n_want, 2 * n_want, 5, 8):
+        raise AssertionError(f"{name}: inbox launched at (n, G, m, slots) "
+                             f"= {shape}")
+    return name, n, slots, args
+
+
+def phase_dense_ref(dev) -> tuple:
+    """n=32,768 (the largest size at which the dense stats sum exactly):
+    the `dense_100k` program and `bench.py`'s configuration against the
+    JAX package's ticks, stats and event lanes. Returns the phase's line
+    and the inputs of the pick run's last kernel launch."""
+    shift = dense_100k.run(DENSE_REF_N, 25, device=dev, log=lambda s: None)
+    checked = {"shift": _dense_ref_check(
+        "shift", shift["convergence_ticks"] if shift["converged"] else None,
+        shift, shift["events"])}
+    with last_inbox_dispatch() as last:
+        rec, stats, sim = _dense_boot(dev, DENSE_REF_N, "pick", "cuda")
+    events = sim.state.events.cpu().numpy().astype(np.uint32).tolist()
+    checked["pick"] = _dense_ref_check("pick", rec["stable_tick"], stats,
+                                       events)
+    if rec["inbox_kernel_launches"] != sim.ticks:
+        raise AssertionError(f"dense_ref pick: {rec['inbox_kernel_launches']}"
+                             f" kernel launches in {sim.ticks} ticks")
+    case = _real_case("dense_ref_pick", last, DENSE_REF_N)
+    return {"phase": "dense_ref", "ok": True, "n": DENSE_REF_N,
+            "shift": {**checked["shift"], **{k: shift[k] for k in (
+                "init_s", "compile_s", "convergence_wall_s", "ms_per_tick",
+                "peak_mem_bytes")}},
+            "pick": {**checked["pick"], **{k: rec[k] for k in (
+                "wall_s", "ms_per_tick", "inbox_kernel_launches",
+                "peak_mem_bytes")}}}, case
+
+
+def phase_dense_100k_pick(dev) -> tuple:
+    """`bench.measure` at the north star: 100,000 members, pick with the
+    inbox kernel. Returns the phase's line and the inputs of the run's
+    last kernel launch."""
+    params = dict(bench_params(DENSE_100K_N), gossip_mode="pick",
+                  inbox_impl="cuda")
+    inbox_cuda.build_inbox.launches = 0
+    with last_inbox_dispatch() as last:
+        rec = bench.measure(DENSE_100K_N, 0.999, params, "fingers",
+                            check_every=5, device=dev)
+    counted = inbox_cuda.build_inbox.launches
+    det = rec["detail"]
+    tick = det["stable_tick"]
+    case = _real_case("dense_100k_pick", last, DENSE_100K_N)
+    _, n, slots, args = case
+    out = {"phase": "dense_100k_pick", "n": DENSE_100K_N,
+           "stable_tick": tick, "wall_s": rec["value"],
+           "ms_per_tick": 1e3 * rec["value"] / max(1, tick or 0),
+           "coverage": det["coverage"],
+           "false_positive": det["false_positive"],
+           "feeds_per_tick": det["feeds_per_tick"],
+           "feed_entries": det["feed_entries"],
+           "inbox_kernel_launches": det["inbox_kernel_launches"],
+           "launches_with_warm_up": counted,
+           "peak_mem_bytes": det["peak_mem_bytes"],
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "inbox_shape": {"n": n, "G": args[0].shape[0],
+                           "m": args[1].shape[1], "slots": slots},
+           "against": {"north_star_s": 60.0,
+                       "BENCH_CPU_100k_stable_tick": 130},
+           "nvidia_smi": ib.nvidia_smi()}
+    if (tick is None or det["false_positive"] != 0.0
+            or not np.float32(det["coverage"]) >= np.float32(0.999)
+            or det["inbox_kernel_launches"] != tick
+            or counted <= det["inbox_kernel_launches"]):
+        raise AssertionError(f"dense_100k_pick: {out}")
+    out["ok"] = True
+    return out, case
+
+
+def phase_dense_100k_shift(dev) -> dict:
+    """The reference script's program at n=100,000, chunk 25."""
+    rec = dense_100k.run(DENSE_100K_N, 25, device=dev, log=lambda s: None)
+    out = {"phase": "dense_100k_shift", **{k: rec[k] for k in (
+        "n", "chunk", "feeds_per_tick", "feed_entries", "convergence_ticks",
+        "init_s", "compile_s", "convergence_wall_s", "ms_per_tick",
+        "coverage", "false_positive", "converged", "history",
+        "peak_mem_bytes", "device_kind", "power_limit_w")}}
+    if not rec["converged"] or rec["false_positive"] != 0.0:
+        raise AssertionError(f"dense_100k_shift: {out}")
+    out["ok"] = True
+    return out
+
+
+def phase_ladder(dev) -> dict:
+    """`scale_ladder.py`'s kernel rungs on the card against `LADDER_REF`."""
+    recs = (scale_ladder.rung1(dev) + scale_ladder.rung2(dev)
+            + scale_ladder.rung3(dev))
+    got = dict(scale_ladder.checked(r) for r in recs)
+    if got != LADDER_REF or any(r["platform"] != "gpu" for r in recs):
+        raise AssertionError(f"ladder: {got}, the reference: {LADDER_REF}")
+    return {"phase": "ladder", "ok": True, "rungs": got,
+            "wall_s": {k: r["convergence_wall_s"] for k, r in zip(got, recs)},
+            "per_tick_s_rung3": recs[-1]["per_tick_s"]}
+
+
+def phase_kernels(launches: dict, max_err: dict, real_cases) -> dict:
+    """`launches` maps each kernel to {main path: launches}; `real_cases`
+    are (path, n, slots, inputs) of launches on the dense paths whose
+    shapes `inbox_bench.SHAPES` does not hold."""
+    measured = fresh_kernel_measurements(real_cases)
     shapes = measured["shapes"]
     at_slice = shapes[0]
     return {"kernels": [{
@@ -759,10 +986,19 @@ def main() -> int:
     emit(phase_bridge_wire(dev))
     emit(phase_bridge_silent(dev))
     emit(phase_bridge_scale(dev))
+    dense_ref, ref_case = phase_dense_ref(dev)
+    emit(dense_ref)
+    dense_100k_pick, case_100k = phase_dense_100k_pick(dev)
+    emit(dense_100k_pick)
+    emit(phase_dense_100k_shift(dev))
+    emit(phase_ladder(dev))
     paths = {"dense_pick": pick["inbox_kernel_launches"],
-             "pview_pick": pview_pick["inbox_kernel_launches"]}
+             "pview_pick": pview_pick["inbox_kernel_launches"],
+             "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],
+             "dense_100k_pick": dense_100k_pick["inbox_kernel_launches"]}
     emit(phase_kernels({"inbox_build": paths},
-                       {"inbox_build": inbox["max_abs_err"]}))
+                       {"inbox_build": inbox["max_abs_err"]},
+                       [ref_case, case_100k]))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -25,6 +25,7 @@ import time
 import torch
 
 from corrosion_tpu_torch.models.cluster import ClusterSim
+from corrosion_tpu_torch.ops import inbox_cuda
 from corrosion_tpu_torch.runtime.device import resolve_device
 
 # the measured code surface, fingerprinted into every record
@@ -109,9 +110,15 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
             check_every: int = 5, device=None) -> dict:
     """One bench record: warm up on a throwaway sim (seed 1) so the kernel
     build and first launches fall outside the clock, then time the boot
-    of a fresh sim (seed 0) to `target` coverage."""
+    of a fresh sim (seed 0) to `target` coverage. On the card the record
+    also holds the peak device memory of both sims (the timed one takes
+    the warm one's freed blocks) and the inbox kernel's launches in the
+    timed run."""
     code_sha = code_fingerprint()
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.init()  # the allocator's stats exist only after it
+        torch.cuda.reset_peak_memory_stats(dev)
     warm = ClusterSim(n, seed=1, seed_mode=seed_mode, device=dev, **params)
     if device_loop:
         warm.warm_device_loop(target, MAX_TICKS, check_every)
@@ -122,6 +129,7 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
 
     sim = ClusterSim(n, seed=0, seed_mode=seed_mode, device=dev, **params)
     _sync(dev)
+    launches0 = inbox_cuda.build_inbox.launches
     t0 = time.monotonic()
     if device_loop:
         stable_tick = sim.run_until_stable_device(target, MAX_TICKS,
@@ -131,6 +139,7 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
                                            fine_every=10)
     _sync(dev)
     elapsed = time.monotonic() - t0
+    launches = inbox_cuda.build_inbox.launches - launches0
     stats = sim.stats()
     return {
         "metric": f"time_to_stable_membership_n{n}",
@@ -156,6 +165,9 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
             "platform": "gpu" if dev.type == "cuda" else dev.type,
             "device_kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else None),
+            "inbox_kernel_launches": launches,
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None),
         },
     }
 

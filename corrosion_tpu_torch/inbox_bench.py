@@ -140,31 +140,37 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
+def time_case(build_inbox, build_inbox_plain, name: str, n: int,
+              slots: int, args) -> dict:
+    """One shape's row: the kernel's and the plain version's median ms,
+    the device ms and operations per call, the bound and the host us per
+    call; the kernel's output is checked equal to the plain version's
+    first."""
+    got = build_inbox(n, slots, *args)
+    ref = build_inbox_plain(n, slots, *args)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"inbox kernel differs from the plain "
+                             f"version at shape {name}")
+    del got, ref
+    g, m = args[1].shape
+    dev_ms, dev_ops = device_ms(lambda: build_inbox(n, slots, *args))
+    return {
+        "shape": name, "n": n, "G": g, "m": m, "slots": slots,
+        "ms": median_ms(lambda: build_inbox(n, slots, *args)),
+        "device_ms": dev_ms,
+        "device_ops_per_call": dev_ops,
+        "plain_ms": median_ms(lambda: build_inbox_plain(n, slots, *args),
+                              20),
+        "bound_ms": bound_ms(n, slots, args[0], args[3]),
+        "host_us": host_us(lambda: build_inbox(n, slots, *args)),
+    }
+
+
 def time_shapes(build_inbox, build_inbox_plain, dev) -> list:
-    """Per shape: the kernel's and the plain version's median ms, the
-    bound and the host us per call; each kernel output is checked equal
-    to the plain version's first."""
-    out = []
-    for i, (name, n, g, m, slots) in enumerate(SHAPES):
-        args = inputs(70 + i, n, g, m, dev)
-        got = build_inbox(n, slots, *args)
-        ref = build_inbox_plain(n, slots, *args)
-        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-            raise AssertionError(f"inbox kernel differs from the plain "
-                                 f"version at shape {name}")
-        del got, ref
-        dev_ms, dev_ops = device_ms(lambda: build_inbox(n, slots, *args))
-        out.append({
-            "shape": name, "n": n, "G": g, "m": m, "slots": slots,
-            "ms": median_ms(lambda: build_inbox(n, slots, *args)),
-            "device_ms": dev_ms,
-            "device_ops_per_call": dev_ops,
-            "plain_ms": median_ms(lambda: build_inbox_plain(n, slots, *args),
-                                  20),
-            "bound_ms": bound_ms(n, slots, args[0], args[3]),
-            "host_us": host_us(lambda: build_inbox(n, slots, *args)),
-        })
-    return out
+    """`time_case` at every shape of `SHAPES`, on seeded inputs."""
+    return [time_case(build_inbox, build_inbox_plain, name, n, slots,
+                      inputs(70 + i, n, g, m, dev))
+            for i, (name, n, g, m, slots) in enumerate(SHAPES)]
 
 
 def main() -> None:

@@ -13,7 +13,14 @@ import pytest
 import torch
 
 from corrosion_tpu.models.cluster import ClusterSim as JaxClusterSim
-from corrosion_tpu_torch import bench
+from corrosion_tpu_torch import (
+    bench,
+    convergence_probe,
+    dense_100k,
+    feed_sweep,
+    profile_swim,
+    scale_ladder,
+)
 from corrosion_tpu_torch.models.cluster import ClusterSim
 from corrosion_tpu_torch.runtime.device import resolve_device
 
@@ -91,3 +98,28 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+SCALE_ENTRY_POINTS = {
+    "dense_100k.run": lambda: dense_100k.run(16, 5),
+    "dense_100k.main": lambda: dense_100k.main(["16", "5"]),
+    "scale_ladder.rung1": lambda: scale_ladder.rung1(),
+    "scale_ladder.rung2": lambda: scale_ladder.rung2(suspicion=(3,)),
+    "scale_ladder.rung3": lambda: scale_ladder.rung3(n=64),
+    "scale_ladder.main": lambda: scale_ladder.main(["1"]),
+    "profile_swim.table": lambda: profile_swim.table(16),
+    "profile_swim.main": lambda: profile_swim.main(["16"]),
+    "convergence_probe.run": lambda: convergence_probe.run(16),
+    "feed_sweep.run": lambda: feed_sweep.run(4, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(SCALE_ENTRY_POINTS))
+def test_scale_drivers_default_to_the_card(name):
+    """The dense scale drivers, with no device named, run on cuda:0 or
+    raise before they allocate anything."""
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda:0")
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SCALE_ENTRY_POINTS[name]()
