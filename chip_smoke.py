@@ -78,12 +78,14 @@ result line is printed:
    absorb 193 members, then down exactly the silently crashed members
    7, 63 and 150 by its own probe and suspicion; prints absorb and
    detect seconds;
-12. `bridge_scale`: `bridge_scale.rung(100_000, 50, "gossip")`, the
-   reference script's largest rung: a dense `ClusterSim(100_000)` (a
-   20 GB view) on the card, one prober that must absorb all 100,000
-   members, and 50 crashes it must down exactly (FP 0, cluster size
-   99,951). Prints absorb and detect seconds, the median ms of five
-   `refresh()` calls, the peak device memory and the `nvidia-smi` line;
+12. `bridge_scale`: `bridge_scale.rung(20_000, 50, "gossip")`, the
+   reference script's largest rung cut from 100,000 to 20,000 members
+   (the rung is host-bound and ticks no kernel; the module's CLI keeps
+   100,000): a dense `ClusterSim(20_000)` on the card, one prober that
+   must absorb all 20,000 members, and 50 crashes it must down exactly
+   (FP 0, cluster size 19,951). Prints absorb and detect seconds, the
+   median ms of five `refresh()` calls, the peak device memory and the
+   `nvidia-smi` line;
 13. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
    JAX package's run on the CPU: `dense_100k.run` (the program of
    `scripts/dense_100k.py`: 16 feeds, chunk 25, shift) and `bench.py`'s
@@ -110,15 +112,54 @@ result line is printed:
    count, false positive and coverage must equal `LADDER_REF`, the JAX
    package's rungs through the same code on the CPU. Wall times are
    printed;
-17. `torch.profiler` must see exactly one device kernel, and no memset,
+17. `pview_churn_ref`: `pview_converge.run` (the program of
+   `scripts/pview_converge.py`) at n=8,192, K=512, in shift and in pick
+   with the inbox kernel: each run's boot tick, its six stats and 14
+   event totals, the detection tick of its 81 crashes, the stats and
+   totals there and its flight timeline must equal `PVIEW_CHURN_REF`
+   (the JAX package's program on the CPU), with one kernel launch per
+   pick tick; the pick run's last launch's inputs are kept for the
+   kernels line;
+18. `pview_smoke`: `bench_smoke.run()` (n=2,048, K=256, boot through the
+   device loop, 1 % churn) must equal `SMOKE_REF`;
+19. `pview_flight`: `chaos_soak.kernel_flight_phase(7)` and
+   `flaky_node_phase((3, 11))`, each publishing into a recorder of its
+   own while the global one holds every earlier pview frame, must equal
+   `FLIGHT_REF`; `churn_sweep.run_config` at n=2,048, K=256 for
+   "baseline" and "lifeguard" must equal `SWEEP_REF`;
+20. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+   crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
+   stats) and at each end (ticks, event totals, timeline), the JAX
+   package's program on the CPU: the churn path's witness between 8,192
+   and the 100,000 rung, which has no reference;
+21. `pview_churn_100k`: `pview_converge.run(100_000, 2048)`, the
+   script's default rung at full width, must converge on the four-term
+   bar and detect all 1,000 crashes with FP 0 within its caps; prints
+   the ticks beside the banked `A-convergence-100000`'s (a TPU run of
+   older code: ticks only), the detected share at every churn check,
+   the wall of both phases, ms per tick, the stats pass's ms and the
+   peak device memory;
+22. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+   skip_churn=True)` to tick 200 must equal `PVIEW_1M_REF` (the JAX
+   package's program there: six stats at every check from tick 50, and
+   14 event totals at tick 200) with FP 0 and full tables; prints init
+   s, wall, ms per tick and the peak device memory beside the 8.6 GB
+   table (the run to the bar, which does not converge within 2,000
+   ticks, is the CLI's);
+23. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+   calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
+   among them) and the memory ladder's row in both tick modes must come
+   back with finite times and peaks;
+24. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
    kernel its launches on the main paths (and per path), its median time
    over 100 launches at the dense slice's shapes, the plain version's, and the
    bound; for the inbox kernel also per shape of `inbox_bench.SHAPES`,
-   and at the inputs of `dense_ref` pick's and `dense_100k_pick`'s last
-   launches (each checked equal to the plain version first), its
+   and at the inputs of the last launches of `dense_ref` pick,
+   `dense_100k_pick` and `pview_churn_ref` pick (each checked equal to
+   the plain version first), its
    ms, device ms, plain ms, bound and host us per call, the floor of
    CUDA-event timing, the kernel's cluster size (its `kCluster`) and its
    device kernels per call. Every bound is computed from this run's
@@ -144,10 +185,18 @@ import torch
 
 from corrosion_tpu_torch import bench
 from corrosion_tpu_torch import bridge_scale as bs
-from corrosion_tpu_torch import crdt_bench, dense_100k
+from corrosion_tpu_torch import (
+    bench_smoke,
+    chaos_soak,
+    churn_sweep,
+    crdt_bench,
+    dense_100k,
+    pview_profile,
+    scale_ladder,
+)
 from corrosion_tpu_torch import inbox_bench as ib
+from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch import scale_ladder
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
 from corrosion_tpu_torch.convert import crdt_inputs_to_torch
 from corrosion_tpu_torch.entry import entry
@@ -270,6 +319,184 @@ LADDER_REF = {
           "churn_crashed": 100, "false_positive_healthy": 0.0,
           "false_positive_after_churn": 0.0, "coverage": 1.0},
 }
+
+# `pview_converge.checked` of the JAX package's program (the body of
+# `scripts/pview_converge.py` on one device: fingers seeds, PRNGKey(1)
+# split once per 25-tick `tick_n_donated`, stats every 25 ticks) with its
+# "gsort" inbox on the CPU, at the A-convergence-8192 configuration
+# (`python -m tests.test_torch_pview_churn`): the boot tick, its six
+# PVIEW_STATS (float32) and 14 event totals, the ticks to detect the 81
+# crashes, the stats and totals there, and the flight timeline's row
+# count and sha256 (`pview_converge.timeline_digest`)
+PVIEW_CHURN_N = (8192, 512)
+PVIEW_CHURN_REF = {
+    "shift": (50, (0.9990234375, 511.0, 152.0, 1.0, 0.0, 1.0),
+              (7930414, 0, 6166726, 1763688, 1507275, 2889832, 409600, 0,
+               0, 0, 102400, 0, 0, 0),
+              425, (1.0, 505.9712829589844, 464.0, 1.0, 0.0, 1.0),
+              (43089541, 0, 41308991, 1780550, 1603908, 30429771, 3823201,
+               4597, 4145, 0, 964197, 0, 0, 0),
+              0, "4f53cda18c2baa0c0354bb5f9a3ecbe5"
+                 "ed12ab4d8e11ba873c2f11161202b945"),
+    "pick": (50, (0.9949951171875, 511.0, 160.0, 1.0, 0.0, 1.0),
+             (5118080, 0, 3112374, 2005706, 768562, 2189831, 409600, 0, 0,
+              0, 102400, 0, 0, 0),
+             400, (1.0, 505.9712829589844, 464.0, 1.0, 0.0, 1.0),
+             (37890033, 0, 32629314, 5260719, 800444, 28116623, 3622402,
+              3476, 2910, 0, 913500, 0, 0, 0),
+             4, "8e3375d95c4bed09424558c7ccf35a99"
+                "c42502667fe49542fb0d6c22df4e7b80"),
+}
+# `bench_smoke.checked` of the JAX package's `scripts/bench_smoke.py`
+# workload at its defaults (n=2,048, K=256) on the CPU
+SMOKE_REF = (50, (0.9990234375, 255.0, 106.0, 1.0, 0.0, 1.0), 225,
+             (1.0, 252.43836975097656, 231.0, 1.0, 0.0, 1.0),
+             (6871586, 0, 6347406, 524180, 407748, 2194324, 554200, 528,
+              423, 0, 139673, 0, 0, 0))
+# `chaos_soak.checked` of the JAX package's `kernel_flight_phase(7)` and
+# `flaky_node_phase((3, 11))` runs on the CPU, each sim publishing into a
+# clean recorder
+FLIGHT_REF = {
+    "kernel_flight": (7, 40, 18, "a1b4f6c29bba381b830bc99384e14d25"
+                                 "2ecba259e1b9aa157c7273d220bd2988"),
+    "flaky": [
+        (3, (119, 115, 119, 116, 0, 0, 15, 280,
+             "373d3de666154ed541eeb7b12ddfed07"
+             "17879f3f16411bdac41f22e0682e38a5"),
+         (5, 3, 5, 5, 8, 2, 15, 280,
+          "562b742001f844fb8ea8b5fa730c05c5"
+          "f15e2fb9d32ca7a0dc0e68eb02693a9a")),
+        (11, (119, 114, 119, 116, 0, 0, 15, 280,
+              "234fb763b8803fefb39141871ef11d7b"
+              "736aed7e1f5be2ee9d198307076df4fd"),
+         (5, 2, 5, 5, 6, 2, 15, 280,
+          "e8e0370578bd90e24532b689a8cef9d0"
+          "6fe23181e429ef9c12b25b8a59f5d614")),
+    ],
+}
+# `churn_sweep.checked` of the JAX package's `run_config` on the CPU
+SWEEP_N = (2048, 256)
+SWEEP_REF = {
+    "baseline": ("baseline", 20, 130,
+                 (0.9970703125, 255.0, 103.0, 1.0, 0.0, 1.0),
+                 (1.0, 252.43836975097656, 231.0, 1.0, 0.0, 1.0),
+                 (3874915, 0, 3521639, 353276, 277362, 2370503, 302000, 463,
+                  346, 0, 76153, 0, 0, 0)),
+    "lifeguard": ("lifeguard", 20, 120,
+                  (0.9970703125, 255.0, 103.0, 1.0, 0.0, 1.0),
+                  (1.0, 252.43836975097656, 231.0, 1.0, 0.0, 1.0),
+                  (3675868, 0, 3324083, 351785, 277466, 2207963, 281920,
+                   458, 297, 0, 71080, 167, 0, 0)),
+}
+PVIEW_100K = (100_000, 2048)
+# PVIEW_SCALE.json's A-convergence-100000: a TPU run of older code, its
+# tick mode not recorded; compared for ticks only
+PVIEW_100K_BANKED = {"ticks": 195, "detect_all_ticks": 1430}
+PVIEW_25K = (25_000, 512)
+# the JAX package's `pview_converge` program at n=25,000, K=512, shift,
+# on the CPU (`python -m tests.test_torch_pview_churn --ref-25k`): each
+# check's tick and six stats (float32, shortest repr), and
+# `pview_converge.checked` of the run. PVIEW_SCALE.json's
+# A-convergence-25000 (CPU, older code): boot 250, detection 1,125,
+# compared for ticks only
+PVIEW_25K_BANKED = {"ticks": 250, "detect_all_ticks": 1125}
+PVIEW_CHURN_25K_REF = {
+    "history": (
+        (50, 0.95364, 511.0, 102.0, 1.0, 0.0, 1.0),
+        (75, 0.95892, 511.0, 121.0, 1.0, 0.0, 1.0),
+        (100, 0.96512, 511.0, 115.0, 1.0, 0.0, 1.0),
+        (125, 0.96956, 511.0, 108.0, 1.0, 0.0, 1.0),
+        (150, 0.9734, 511.0, 114.0, 1.0, 0.0, 1.0),
+        (175, 0.9778, 511.0, 116.0, 1.0, 0.0, 1.0),
+        (200, 0.98108, 511.0, 116.0, 1.0, 0.0, 1.0),
+        (225, 0.98524, 511.0, 118.0, 1.0, 0.0, 1.0),
+        (250, 0.98736, 511.0, 125.0, 1.0, 0.0, 1.0),
+        (275, 0.9898, 511.0, 128.0, 1.0, 0.0, 1.0),
+        (300, 0.9916, 511.0, 132.0, 1.0, 0.0, 1.0),
+        (325, 0.9937374, 505.94464, 141.0, 1.0, 0.0, 0.0),
+        (350, 0.9949495, 505.94434, 144.0, 1.0, 0.0, 0.004),
+        (375, 0.9957576, 505.944, 145.0, 1.0, 0.0, 0.016),
+        (400, 0.99664646, 505.9471, 149.0, 1.0, 0.0, 0.016),
+        (425, 0.9971313, 505.94788, 155.0, 1.0, 0.0, 0.016),
+        (450, 0.997697, 505.94702, 157.0, 1.0, 0.0, 0.016),
+        (475, 0.9979394, 505.94946, 158.0, 1.0, 0.0, 0.016),
+        (500, 0.9981818, 505.9525, 161.0, 1.0, 0.0, 0.016),
+        (525, 0.9976162, 505.617, 134.0, 1.0, 0.0, 0.016),
+        (550, 0.99519193, 505.59094, 124.0, 1.0, 0.0, 0.016),
+        (575, 0.9904646, 505.64694, 135.0, 1.0, 0.0, 0.016),
+        (600, 0.9876364, 505.70993, 121.0, 1.0, 0.0, 0.016),
+        (625, 0.98642427, 505.75342, 122.0, 1.0, 0.0, 0.02),
+        (650, 0.98610103, 505.79538, 121.0, 1.0, 0.0, 0.02),
+        (675, 0.98735356, 505.83292, 119.0, 1.0, 0.0, 0.028),
+        (700, 0.98941416, 505.85587, 114.0, 1.0, 0.0, 0.028),
+        (725, 0.99151516, 505.87338, 112.0, 1.0, 0.0, 0.04),
+        (750, 0.99288887, 505.9002, 113.0, 1.0, 0.0, 0.076),
+        (775, 0.9941818, 505.91504, 111.0, 1.0, 0.0, 0.1),
+        (800, 0.99571717, 505.92828, 112.0, 1.0, 0.0, 0.12),
+        (825, 0.99640405, 505.93427, 113.0, 1.0, 0.0, 0.148),
+        (850, 0.9971717, 505.93918, 116.0, 1.0, 0.0, 0.176),
+        (875, 0.99737376, 505.94177, 117.0, 1.0, 0.0, 0.228),
+        (900, 0.9976162, 505.94492, 119.0, 1.0, 0.0, 0.276),
+        (925, 0.9978586, 505.9505, 121.0, 1.0, 0.0, 0.332),
+        (950, 0.998101, 505.95334, 130.0, 1.0, 0.0, 0.384),
+        (975, 0.99842423, 505.95648, 130.0, 1.0, 0.0, 0.424),
+        (1000, 0.99870706, 505.95844, 130.0, 1.0, 0.0, 0.476),
+        (1025, 0.99866664, 505.97418, 130.0, 1.0, 0.0, 0.548),
+        (1050, 0.993697, 505.92416, 103.0, 1.0, 0.0, 0.772),
+        (1075, 0.9897778, 505.95264, 106.0, 1.0, 0.0, 0.832),
+        (1100, 0.98561615, 505.9778, 90.0, 1.0, 0.0, 0.852),
+        (1125, 0.984, 505.9955, 97.0, 1.0, 0.0, 0.864),
+        (1150, 0.98468685, 505.99728, 99.0, 1.0, 0.0, 0.888),
+        (1175, 0.98727274, 505.99634, 110.0, 1.0, 0.0, 0.904),
+        (1200, 0.9883232, 506.00198, 125.0, 1.0, 0.0, 0.92),
+        (1225, 0.99030304, 506.00134, 139.0, 1.0, 0.0, 0.936),
+        (1250, 0.99220204, 505.9971, 147.0, 1.0, 0.0, 0.944),
+        (1275, 0.9939394, 505.9968, 146.0, 1.0, 0.0, 0.952),
+        (1300, 0.9951111, 505.99924, 143.0, 1.0, 0.0, 0.96),
+        (1325, 0.9960404, 505.99915, 147.0, 1.0, 0.0, 0.964),
+        (1350, 0.99680805, 506.00208, 147.0, 1.0, 0.0, 0.972),
+        (1375, 0.99737376, 506.00372, 151.0, 1.0, 0.0, 0.976),
+        (1400, 0.9978586, 506.00476, 157.0, 1.0, 0.0, 0.98),
+        (1425, 0.9983838, 506.00797, 161.0, 1.0, 0.0, 0.984),
+        (1450, 0.99874747, 506.007, 163.0, 1.0, 0.0, 0.984),
+        (1475, 0.9990303, 506.0067, 169.0, 1.0, 0.0, 0.988),
+        (1500, 0.9991515, 506.0072, 184.0, 1.0, 0.0, 0.988),
+        (1525, 0.99923235, 506.00607, 187.0, 1.0, 0.0, 0.988),
+        (1550, 0.99559593, 505.99066, 143.0, 1.0, 0.0, 1.0),
+    ),
+    "checked": (300, (0.991599977016449, 511.0, 132.0, 1.0, 0.0, 1.0),
+                (93473884, 0, 86917537, 6556347, 5576681, 58855211, 7500000,
+                 0, 0, 0, 1875000, 0, 0, 0),
+                1250,
+                (0.9955959320068359, 505.99066162109375, 143.0, 1.0, 0.0, 1.0),
+                (436014582, 0, 419113983, 16900599, 10984596, 306075288,
+                 38128754, 34389, 32234, 0, 9609381, 0, 0, 0),
+                2, "1c6974c51c0d62cf5155cee2ba67e4c0"
+                   "b3ed81e5a9e7d48f7ecbf5829400226f"),
+}
+PVIEW_1M = (1_048_576, 2048)
+PVIEW_1M_BANKED = {"ticks": 50, "pv_coverage": 0.990914}  # CPU, older code
+# the JAX package's 10^6 bootstrap on the CPU to tick 200 (`python -m
+# tests.test_torch_pview_churn --ref-1m 200`, 3,259 s there): each
+# check's tick and six stats (float32, shortest repr), and the 14 event
+# totals at the last. Its run to the bar does not end within 45 minutes
+# there; inside these checks min in-degree already falls (182 to 113)
+# and pv_coverage's rise slows (0.0277 per 25 ticks to 0.0020)
+PVIEW_1M_TICKS = 200
+PVIEW_1M_REF = {
+    "history": (
+        (50, 0.8597574, 2047.0, 182.0, 1.0, 0.0, 1.0),
+        (75, 0.8874893, 2047.0, 169.0, 1.0, 0.0, 1.0),
+        (100, 0.90175056, 2047.0, 158.0, 1.0, 0.0, 1.0),
+        (125, 0.90953827, 2047.0, 152.0, 1.0, 0.0, 1.0),
+        (150, 0.9143543, 2047.0, 138.0, 1.0, 0.0, 1.0),
+        (175, 0.917429, 2047.0, 125.0, 1.0, 0.0, 1.0),
+        (200, 0.91946507, 2047.0, 113.0, 1.0, 0.0, 1.0),
+    ),
+    "events": (3108930198, 0, 2769435024, 339495174, 370701347,
+               1582095122, 209715200, 0, 0, 0, 52428800, 0, 0, 0),
+}
+BRIDGE_SCALE_N = 20_000  # bridge_scale.py's CLI keeps 100,000
 
 # (n, g, m, slots, p_ok, dst_spread): tests/test_inbox_impls.py's cases
 DEGENERATE_CASES = [
@@ -784,13 +1011,13 @@ def phase_bridge_silent(dev) -> dict:
 
 
 def phase_bridge_scale(dev) -> dict:
-    """`bridge_scale.py`'s largest rung: 100,000 members on the card, 50
-    crashes, gossip mode."""
-    rec = asyncio.run(bs.rung(100_000, 50, "gossip", dev))
-    torch.cuda.empty_cache()  # the rung's 20 GB view is gone
+    """`bridge_scale.py`'s largest rung cut to `BRIDGE_SCALE_N` members
+    on the card, 50 crashes, gossip mode."""
+    rec = asyncio.run(bs.rung(BRIDGE_SCALE_N, 50, "gossip", dev))
+    torch.cuda.empty_cache()  # the rung's view is gone
     if not (rec["absorbed"] and rec["detected"]
             and rec["false_positives"] == 0 and rec["n_crash"] == 50
-            and rec["cluster_size"] == 99_951
+            and rec["cluster_size"] == BRIDGE_SCALE_N - 49
             and rec["device"].startswith("cuda")):
         raise AssertionError(f"bridge_scale: {rec}")
     return {"phase": "bridge_scale", "ok": True, **rec,
@@ -814,8 +1041,9 @@ def _dense_ref_check(name: str, tick, stats: dict, events) -> dict:
 
 @contextlib.contextmanager
 def last_inbox_dispatch():
-    """Within the block, `swim.dispatch_inbox` keeps a reference to its
-    inputs (no copy): the dict yielded holds the last call's as "args"."""
+    """Within the block, `dispatch_inbox` (as the dense and the pview
+    tick each call it) keeps a reference to its inputs (no copy): the
+    dict yielded holds the last call's as "args"."""
     last = {}
     dispatch = swim.dispatch_inbox
 
@@ -823,21 +1051,23 @@ def last_inbox_dispatch():
         last["args"] = args
         return dispatch(*args)
 
-    swim.dispatch_inbox = keep_last
+    swim.dispatch_inbox = swim_pview.dispatch_inbox = keep_last
     try:
         yield last
     finally:
-        swim.dispatch_inbox = dispatch
+        swim.dispatch_inbox = swim_pview.dispatch_inbox = dispatch
 
 
-def _real_case(name: str, last: dict, n_want: int) -> tuple:
+def _real_case(name: str, last: dict, want: tuple) -> tuple:
     """(name, n, slots, inputs) of a path's last inbox launch, which must
-    be at that path's shape: G = 2n groups of m = 5, slots 8."""
+    be at that path's (n, G, m, slots): on the dense paths G = 2n groups
+    of m = 5 into 8 slots, on the pview pick path G = 2n of m = 12 into
+    16."""
     _, n, slots, *args = last["args"]
     shape = (n, args[0].shape[0], args[1].shape[1], slots)
-    if shape != (n_want, 2 * n_want, 5, 8):
+    if shape != want:
         raise AssertionError(f"{name}: inbox launched at (n, G, m, slots) "
-                             f"= {shape}")
+                             f"= {shape}, not {want}")
     return name, n, slots, args
 
 
@@ -858,7 +1088,8 @@ def phase_dense_ref(dev) -> tuple:
     if rec["inbox_kernel_launches"] != sim.ticks:
         raise AssertionError(f"dense_ref pick: {rec['inbox_kernel_launches']}"
                              f" kernel launches in {sim.ticks} ticks")
-    case = _real_case("dense_ref_pick", last, DENSE_REF_N)
+    case = _real_case("dense_ref_pick", last,
+                      (DENSE_REF_N, 2 * DENSE_REF_N, 5, 8))
     return {"phase": "dense_ref", "ok": True, "n": DENSE_REF_N,
             "shift": {**checked["shift"], **{k: shift[k] for k in (
                 "init_s", "compile_s", "convergence_wall_s", "ms_per_tick",
@@ -881,7 +1112,8 @@ def phase_dense_100k_pick(dev) -> tuple:
     counted = inbox_cuda.build_inbox.launches
     det = rec["detail"]
     tick = det["stable_tick"]
-    case = _real_case("dense_100k_pick", last, DENSE_100K_N)
+    case = _real_case("dense_100k_pick", last,
+                      (DENSE_100K_N, 2 * DENSE_100K_N, 5, 8))
     _, n, slots, args = case
     out = {"phase": "dense_100k_pick", "n": DENSE_100K_N,
            "stable_tick": tick, "wall_s": rec["value"],
@@ -934,9 +1166,221 @@ def phase_ladder(dev) -> dict:
             "per_tick_s_rung3": recs[-1]["per_tick_s"]}
 
 
+def _quiet(line: str) -> None:
+    pass
+
+
+def _stats_close(got: tuple, want: tuple) -> bool:
+    return len(got) == len(want) and np.allclose(got, want, rtol=1e-6,
+                                                 atol=0)
+
+
+def _churn_ref_check(name: str, rec: dict, want: tuple) -> dict:
+    """The run against `want` (`pview_converge.checked` of the JAX
+    program): ticks, event totals and the timeline exactly, the stats at
+    rtol 1e-6 (float32 sums)."""
+    got = pc.checked(rec)
+    exact = (0, 2, 3, 5, 6, 7)
+    if (any(got[i] != want[i] for i in exact)
+            or not _stats_close(got[1], want[1])
+            or not _stats_close(got[4], want[4])):
+        raise AssertionError(f"{name}: {got}; the reference: {want}")
+    return {"boot_tick": got[0], "detect_all_ticks": got[3],
+            "timeline_rows": got[6]}
+
+
+def _history_check(name: str, rec: dict, want: tuple) -> None:
+    """Every check of the run against the JAX program's: the same ticks,
+    the six stats at rtol 1e-6."""
+    got = rec["history"]
+    if (len(got) != len(want) or any(
+            g[0] != w[0] or not _stats_close(tuple(g[1:]), w[1:])
+            for g, w in zip(got, want))):
+        raise AssertionError(f"{name}: history {got}; the reference: "
+                             f"{want}")
+
+
+def phase_pview_churn_ref(dev) -> tuple:
+    """`pview_converge.run` at n=8,192, K=512 in shift and in pick+cuda
+    against the JAX package's program. Returns the phase's line and the
+    inputs of the pick run's last kernel launch."""
+    out, case = {"phase": "pview_churn_ref", "n": PVIEW_CHURN_N[0],
+                 "slots": PVIEW_CHURN_N[1]}, None
+    for mode in ("shift", "pick"):
+        inbox_cuda.build_inbox.launches = 0
+        with last_inbox_dispatch() as last:
+            rec = pc.run(*PVIEW_CHURN_N, gossip_mode=mode, device=dev,
+                         log=_quiet)
+        launches = inbox_cuda.build_inbox.launches
+        ran = rec["ticks"] + (rec["churn"]["detect_all_ticks"] or 0)
+        want = ran if mode == "pick" else 0
+        if launches != want or rec["inbox_kernel_launches"] != want:
+            raise AssertionError(f"pview_churn_ref {mode}: {launches} "
+                                 f"kernel launches in {ran} ticks")
+        out[mode] = {**_churn_ref_check(f"pview_churn_ref {mode}", rec,
+                                        PVIEW_CHURN_REF[mode]),
+                     "killed": rec["churn"]["killed"],
+                     "inbox_kernel_launches": launches, "ticks_run": ran,
+                     **{k: rec[k] for k in (
+                         "compile_s", "boot_wall_s", "churn_wall_s",
+                         "ms_per_tick", "churn_ms_per_tick",
+                         "peak_mem_bytes")}}
+        if mode == "pick":
+            n = PVIEW_CHURN_N[0]
+            case = _real_case("pview_churn_ref_pick", last,
+                              (n, 2 * n, 12, 16))
+    out["ok"] = True
+    return out, case
+
+
+def phase_pview_smoke(dev) -> dict:
+    """`bench_smoke.run()` at its defaults against `SMOKE_REF`."""
+    rec = bench_smoke.run(device=dev)
+    got = bench_smoke.checked(rec)
+    if (any(got[i] != SMOKE_REF[i] for i in (0, 2, 4))
+            or not _stats_close(got[1], SMOKE_REF[1])
+            or not _stats_close(got[3], SMOKE_REF[3])):
+        raise AssertionError(f"pview_smoke: {got}; the reference: "
+                             f"{SMOKE_REF}")
+    det = rec["detail"]
+    return {"phase": "pview_smoke", "ok": True, **{k: det[k] for k in (
+        "n", "slots", "stable_tick", "churn_killed",
+        "churn_detect_all_ticks", "init_s", "warm_s", "boot_wall_s",
+        "churn_wall_s", "device_kind", "power_limit_w")}}
+
+
+def phase_pview_flight(dev) -> dict:
+    """The chaos soak's kernel phases, each in a recorder of its own while
+    the global `FLIGHT` holds every earlier pview run's frames, against
+    `FLIGHT_REF`; then two `churn_sweep` configurations against
+    `SWEEP_REF`."""
+    t0 = time.monotonic()
+    foreign = len(FLIGHT.window(4096, kernel="pview"))
+    kf = chaos_soak.kernel_flight_phase(7, dev)
+    fl = chaos_soak.flaky_node_phase((3, 11), dev)
+    got = chaos_soak.checked(kf, fl)
+    if got != FLIGHT_REF:
+        raise AssertionError(f"pview_flight: {got}; the reference: "
+                             f"{FLIGHT_REF}")
+    flight_s = time.monotonic() - t0
+    sweep = {}
+    for label in ("baseline", "lifeguard"):
+        t0 = time.monotonic()
+        rec = churn_sweep.run_config(label, *SWEEP_N, device=dev,
+                                     **dict(churn_sweep.CONFIGS)[label])
+        g, w = churn_sweep.checked(rec), SWEEP_REF[label]
+        if (g[:3] != w[:3] or g[5] != w[5] or not _stats_close(g[3], w[3])
+                or not _stats_close(g[4], w[4])):
+            raise AssertionError(f"churn_sweep {label}: {g}; the "
+                                 f"reference: {w}")
+        sweep[label] = {"boot_ticks": g[1], "detect_all_ticks": g[2],
+                        "wall_s": time.monotonic() - t0}
+    return {"phase": "pview_flight", "ok": True,
+            "global_pview_frames_before": foreign,
+            "kernel_flight": got["kernel_flight"][:3],
+            "flaky_detect_ticks": {r["seed"]: [r[m]["detect_ticks"] for m in (
+                "vanilla", "lifeguard")] for r in fl["runs"]},
+            "flight_s": flight_s, "sweep": sweep}
+
+
+def _scale_line(rec: dict) -> dict:
+    return {k: rec[k] for k in (
+        "n", "slots", "ticks", "converged", "init_s", "compile_s",
+        "boot_wall_s", "ms_per_tick", "stats_pass_ms", "peak_mem_bytes",
+        "device_kind", "power_limit_w")}
+
+
+def phase_pview_churn_25k(dev) -> dict:
+    """`pview_converge.run` at n=25,000, K=512, shift (the banked
+    `A-convergence-25000` configuration; 250 crashed), every check equal
+    to `PVIEW_CHURN_25K_REF`: the churn path's witness between the 8,192
+    reference and the 100,000 rung, which has none."""
+    rec = pc.run(*PVIEW_25K, device=dev, log=_quiet)
+    ref = PVIEW_CHURN_25K_REF
+    out = {"phase": "pview_churn_25k",
+           **_churn_ref_check("pview_churn_25k", rec, ref["checked"]),
+           "killed": rec["churn"]["killed"], "checks": len(rec["history"]),
+           **{k: rec[k] for k in ("n", "slots", "boot_wall_s",
+                                  "churn_wall_s", "ms_per_tick",
+                                  "churn_ms_per_tick", "peak_mem_bytes")},
+           "banked_ticks_only": PVIEW_25K_BANKED}
+    _history_check("pview_churn_25k", rec, ref["history"])
+    out["ok"] = True
+    return out
+
+
+def phase_pview_churn_100k(dev) -> dict:
+    """The script's default rung, n=100,000, K=2,048, shift: converged on
+    the four-term bar, then all 1,000 crashes detected with FP 0 (within
+    the 2,000-tick cap; the detected share at every check is printed, so
+    that a drift shows before the cap)."""
+    torch.cuda.empty_cache()
+    rec = pc.run(*PVIEW_100K, device=dev, log=_quiet)
+    churn = rec["churn"]
+    out = {"phase": "pview_churn_100k", **_scale_line(rec),
+           "killed": churn["killed"],
+           "detect_all_ticks": churn["detect_all_ticks"],
+           "detected_by_check": [(row[0], row[6]) for row in rec["history"]
+                                 if row[0] > rec["ticks"]],
+           "churn_wall_s": rec["churn_wall_s"],
+           "churn_ms_per_tick": rec["churn_ms_per_tick"],
+           "stats": rec["stats"], "churn_stats": churn["stats"],
+           "timeline_rows": len(churn["timeline"]),
+           "banked_ticks_only": PVIEW_100K_BANKED,
+           "nvidia_smi": ib.nvidia_smi()}
+    if (not pc.ok(rec) or churn["killed"] != 1000
+            or churn["stats"]["detected"] != 1.0
+            or churn["stats"]["false_positive"] != 0.0):
+        raise AssertionError(f"pview_churn_100k: {out}")
+    out["ok"] = True
+    return out
+
+
+def phase_pview_boot_1m(dev) -> dict:
+    """The 10^6-member bootstrap, K=2,048, to tick `PVIEW_1M_TICKS`:
+    every check (ticks 50, 75, ...) equal to `PVIEW_1M_REF`, the JAX
+    package's program there, and the event totals at the last, with FP 0
+    and full tables. The bar itself is not met there, nor within the
+    script's 2,000 ticks (PERF.md §6)."""
+    torch.cuda.empty_cache()
+    rec = pc.run(*PVIEW_1M, max_ticks=PVIEW_1M_TICKS, skip_churn=True,
+                 device=dev, log=_quiet)
+    out = {"phase": "pview_boot_1m", **_scale_line(rec),
+           "stats": rec["stats"], "table_bytes": PVIEW_1M[0] * PVIEW_1M[1] * 4,
+           "history": rec["history"], "banked_ticks_only": PVIEW_1M_BANKED,
+           "nvidia_smi": ib.nvidia_smi()}
+    _history_check("pview_boot_1m", rec, PVIEW_1M_REF["history"])
+    raw = rec["raw"]["boot_stats"]
+    if (rec["ticks"] != PVIEW_1M_TICKS
+            or tuple(rec["raw"]["boot_events"]) != PVIEW_1M_REF["events"]
+            or raw["false_positive"] != 0.0 or raw["occupancy"] != 1.0):
+        raise AssertionError(f"pview_boot_1m: {out}; the reference: "
+                             f"{PVIEW_1M_REF}")
+    torch.cuda.empty_cache()
+    out["ok"] = True
+    return out
+
+
+def phase_pview_profile(dev) -> dict:
+    """`pview_profile.run` at a reduced shape: every phase row, the
+    kernel's among them, and the memory ladder's rows, on the card."""
+    n, k = 16_384, 512
+    rec = pview_profile.run(n, k, 8, shapes=[(n, k)], iters=3, device=dev,
+                            log=_quiet)
+    rows = {r["phase"]: r["ms"] for r in rec["rows"]}
+    if (len(rows) != 14 or f"inbox[cuda] G={2 * n}" not in rows
+            or not all(np.isfinite(v) and v > 0 for v in rows.values())
+            or [r["tick_mode"] for r in rec["ladder"]] != ["fused", "r5"]
+            or not all(r["tick_peak_gb"] > r["live_gb"] > r["table_gb"]
+                       for r in rec["ladder"])):
+        raise AssertionError(f"pview_profile: {rec['text']}")
+    return {"phase": "pview_profile", "ok": True, "n": n, "slots": k,
+            "rows_ms": rows, "ladder": rec["ladder"]}
+
+
 def phase_kernels(launches: dict, max_err: dict, real_cases) -> dict:
     """`launches` maps each kernel to {main path: launches}; `real_cases`
-    are (path, n, slots, inputs) of launches on the dense paths whose
+    are (path, n, slots, inputs) of launches on the main paths whose
     shapes `inbox_bench.SHAPES` does not hold."""
     measured = fresh_kernel_measurements(real_cases)
     shapes = measured["shapes"]
@@ -992,13 +1436,23 @@ def main() -> int:
     emit(dense_100k_pick)
     emit(phase_dense_100k_shift(dev))
     emit(phase_ladder(dev))
+    churn_ref, case_churn = phase_pview_churn_ref(dev)
+    emit(churn_ref)
+    emit(phase_pview_smoke(dev))
+    emit(phase_pview_flight(dev))
+    emit(phase_pview_churn_25k(dev))
+    emit(phase_pview_churn_100k(dev))
+    emit(phase_pview_boot_1m(dev))
+    emit(phase_pview_profile(dev))
     paths = {"dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"],
              "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],
-             "dense_100k_pick": dense_100k_pick["inbox_kernel_launches"]}
+             "dense_100k_pick": dense_100k_pick["inbox_kernel_launches"],
+             "pview_churn_ref_pick":
+                 churn_ref["pick"]["inbox_kernel_launches"]}
     emit(phase_kernels({"inbox_build": paths},
                        {"inbox_build": inbox["max_abs_err"]},
-                       [ref_case, case_100k]))
+                       [ref_case, case_100k, case_churn]))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -26,7 +26,7 @@ import torch
 
 from corrosion_tpu_torch.models.cluster import ClusterSim
 from corrosion_tpu_torch.ops import inbox_cuda
-from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.device import resolve_device, sync
 
 # the measured code surface, fingerprinted into every record
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -100,10 +100,6 @@ def config_from_env(env=os.environ) -> dict:
     )
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
 
 def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
             record_every: int = 25, device_loop: bool = True,
@@ -128,7 +124,7 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
     del warm
 
     sim = ClusterSim(n, seed=0, seed_mode=seed_mode, device=dev, **params)
-    _sync(dev)
+    sync(dev)
     launches0 = inbox_cuda.build_inbox.launches
     t0 = time.monotonic()
     if device_loop:
@@ -137,7 +133,7 @@ def measure(n: int, target: float, params: dict, seed_mode: str = "fingers",
     else:
         stable_tick = sim.run_until_stable(target, MAX_TICKS, record_every,
                                            fine_every=10)
-    _sync(dev)
+    sync(dev)
     elapsed = time.monotonic() - t0
     launches = inbox_cuda.build_inbox.launches - launches0
     stats = sim.stats()

@@ -38,11 +38,11 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch.convert import crdt_inputs_to_torch
-from corrosion_tpu_torch.inbox_bench import median_ms, nvidia_smi
+from corrosion_tpu_torch.inbox_bench import median_ms
 from corrosion_tpu_torch.ops import crdt_merge
 from corrosion_tpu_torch.ops.crdt_merge import SENTINEL, _pad, value_digest
 from corrosion_tpu_torch.profile_tick import _device_us
-from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.device import nvidia_smi, resolve_device
 
 SIZES = (512, 4096, 16384, 65536)
 HOT_ROWS = 2048

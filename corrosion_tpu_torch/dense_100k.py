@@ -35,9 +35,8 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch.inbox_bench import nvidia_smi
 from corrosion_tpu_torch.ops import swim
-from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.device import card_line, resolve_device, sync
 from corrosion_tpu_torch.runtime.records import merge_records
 
 MAX_TICKS = 400
@@ -56,19 +55,6 @@ def dense_params(n: int, feeds: Optional[int] = None) -> swim.SwimParams:
     )
 
 
-def card_line(dev: torch.device) -> dict:
-    """The card's name and power limit in W, from `nvidia-smi`; None on
-    the CPU."""
-    if dev.type != "cuda":
-        return {"device_kind": None, "power_limit_w": None}
-    name, limit = (s.strip() for s in nvidia_smi().rsplit(",", 1))
-    return {"device_kind": name, "power_limit_w": float(limit.split()[0])}
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
 
 def run(n: int = 100_000, chunk: int = 25, device=None,
         on_chunk: Optional[Callable] = None, log=print) -> dict:
@@ -84,7 +70,7 @@ def run(n: int = 100_000, chunk: int = 25, device=None,
     t0 = time.monotonic()
     state = swim.init_state(params, jr.PRNGKey(0), seed_mode="fingers",
                             device=dev)
-    _sync(dev)
+    sync(dev)
     init_s = time.monotonic() - t0
     log(f"init {init_s:.1f}s")
 
@@ -92,7 +78,7 @@ def run(n: int = 100_000, chunk: int = 25, device=None,
     t0 = time.monotonic()
     rng, key = jr.split(rng)
     state = swim.tick_n(state, key, params, chunk)
-    _sync(dev)
+    sync(dev)
     first_s = time.monotonic() - t0
     log(f"first-dispatch {first_s:.1f}s")
     ticks = chunk

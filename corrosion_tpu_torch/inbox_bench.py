@@ -26,11 +26,12 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import time
 
 import numpy as np
 import torch
+
+from corrosion_tpu_torch.runtime.device import nvidia_smi
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
@@ -131,13 +132,6 @@ def device_ms(fn, reps: int = 20):
     busy_us = sum(per_call[k] * statistics.fmean(v)
                   for k, v in by_name.items())
     return busy_us / 1e3, sum(per_call.values())
-
-
-def nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
 
 
 def time_case(build_inbox, build_inbox_plain, name: str, n: int,

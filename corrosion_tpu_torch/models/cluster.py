@@ -34,7 +34,7 @@ from corrosion_tpu_torch.runtime.metrics import (
     record_kernel_events,
     record_phase_seconds,
 )
-from corrosion_tpu_torch.runtime.records import FLIGHT
+from corrosion_tpu_torch.runtime.records import FLIGHT, FlightRecorder
 
 
 @dataclass
@@ -47,9 +47,12 @@ class TickMetrics:
 
 
 class _Drains:
-    """The telemetry drain both simulation drivers share."""
+    """The telemetry drain both simulation drivers share. `flight` is the
+    recorder the frames go to: the process-global `FLIGHT` unless a
+    caller gives the sim a recorder of its own."""
 
     kernel = ""
+    flight: FlightRecorder = FLIGHT
 
     def _reset_drain(self) -> None:
         self._ev_prev = np.zeros(swim.N_EVENTS, dtype=np.uint32)
@@ -69,7 +72,8 @@ class _Drains:
         self.last_flight = flight
         with trace.span("sim.flight.drain", kernel=self.kernel,
                         tick=flight.t):
-            FLIGHT.record_ring(self.kernel, flight, since=self._flight_next)
+            self.flight.record_ring(self.kernel, flight,
+                                    since=self._flight_next)
         self._flight_next = flight.t
 
 
@@ -367,6 +371,7 @@ def flaky_node_ab(
     detect_cap: int = 200,
     suspicion_ticks: int = 4,
     drain_flight: bool = False,
+    flight: Optional[FlightRecorder] = None,
     **overrides,
 ) -> dict:
     """One seeded vanilla-vs-Lifeguard A/B (the reference's harness).
@@ -377,14 +382,17 @@ def flaky_node_ab(
     and counts ticks until every live observer has it detected. Both
     modes replay the same seed, vanilla with lhm_max=0 and Lifeguard with
     lhm_max=8. Returns per-mode counts and detection ticks, and with
-    `drain_flight` the Lifeguard run's suspicion timeline from `FLIGHT`.
-    `overrides` carries `device` and parameter overrides."""
+    `drain_flight` the Lifeguard run's suspicion timeline from the
+    sims' recorder (`flight`, else `FLIGHT`). `overrides` carries
+    `device` and parameter overrides."""
+    recorder = FLIGHT if flight is None else flight
     out: dict = {"kernel": kernel, "seed": seed, "n": n, "lag": lag,
                  "loss": loss, "window": window}
     for mode in ("vanilla", "lifeguard"):
         mode_wall = time.time()
         sim = _mk_sim(kernel, n, slots, seed, mode == "lifeguard",
                       suspicion_ticks=suspicion_ticks, **overrides)
+        sim.flight = recorder
         done = 0
         while done < boot_ticks:
             sim.step(min(chunk, boot_ticks - done))
@@ -423,7 +431,7 @@ def flaky_node_ab(
         rec["detect_base"] = base
         if drain_flight:
             # this mode's frames: stamped at drain, after mode_wall
-            frames = [f for f in FLIGHT.window(4096, kernel=kernel)
+            frames = [f for f in recorder.window(4096, kernel=kernel)
                       if f["wall"] >= mode_wall]
             rec["timeline"] = [
                 {

@@ -48,9 +48,8 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import random as jr
-from corrosion_tpu_torch.dense_100k import card_line
 from corrosion_tpu_torch.ops import swim
-from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.device import card_line, resolve_device
 from corrosion_tpu_torch.runtime.records import merge_records
 
 IMPLS = ("sort", "gsort", "cuda")

@@ -33,10 +33,10 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from corrosion_tpu_torch.models.cluster import ClusterSim
 from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.runtime.device import sync as device_sync
 from corrosion_tpu_torch.runtime.records import merge_records
 
 RUNGS = (1, 2, 3)
@@ -65,9 +65,7 @@ def emit(rung: int, name: str, **fields) -> dict:
 def sync(sim) -> None:
     """Wait for the sim's work on the card (nothing to wait for on the
     CPU)."""
-    view = sim.state.view
-    if view.is_cuda:
-        torch.cuda.synchronize(view.device)
+    device_sync(sim.state.view.device)
 
 
 def platform_of(sim) -> str:
