@@ -61,7 +61,35 @@ result line is printed:
    second, each batch's split (marshal, host-to-device, device,
    readback, rebuild) and the peak device memory, then the decision
    program's device ms alone on 2^20 rows;
-10. the kernel-peer bridge's wire (`bridge_wire`): a `KernelPeerBridge`
+10. `store_parity`: the store workload of `store_checks.parity_cases`
+   (120-180 random changes per case, rich values, split batches, even
+   causal lengths with a non-sentinel cid, two value ties the decision
+   program declines) through the port's `CrdtStore`, with `array` on
+   the card and on the CPU and with `python`: every case's final dump
+   and impactful changes must hash to `STORE_PARITY_REF` (the JAX
+   package's store), and the card's `crdt_merge` lane must decide and
+   decline the batches the CPU's does;
+11. `store_flood`: `crdt_bench.run_ab`, the store A/B of
+   `scripts/bench_crdt_merge.py` at its schedule (512 to 65,536 changes
+   per batch over 2,048 hot rows, a warm batch and three batches per
+   size) through `CrdtStore.apply_changes` on `:memory:`, for the
+   `python`, `native` and `array` engines: every engine's final state
+   must hash to `STORE_FLOOD_REF`, and the array engine's lane (batches
+   decided and declined, event totals) must equal the JAX package's
+   array engine over the same run. The native batch library must load.
+   Prints per size each engine's changes per second end to end and
+   decisions per second alone, and the array engine's phase split;
+12. `store_ingest`: `ingest_bench.run`, the remote rungs of
+   `scripts/bench_ingest.py` (20,000 changes each, uniform over 400 pks
+   and conflicting from 3 sites, batches of 500, a file-backed store),
+   under each engine: every final state must hash to `INGEST_REF`;
+   prints rows per second;
+13. `store_replicas`: three port stores (sites 1, 2, 3) on the card with
+   `array` each run 1,000 seeded local write transactions, export their
+   versions through the changeset codec and apply the other two's in
+   orders of their own (`store_checks.replica_run`): the three must reach
+   one converged state, and each replica must equal `REPLICA_REF`;
+14. the kernel-peer bridge's wire (`bridge_wire`): a `KernelPeerBridge`
    over `ClusterSim(192, seed=3)` on the card and another on the CPU,
    each on its own `MemNetwork`, get `bridge_scale.wire_replies`'s
    scripted datagrams (PING, ANNOUNCE, PING_REQ for a live, a crashed
@@ -73,12 +101,12 @@ result line is printed:
    host's timeline must show no aten op and no CUDA call while the
    card's bridge serves a round, and one or two device-to-host copies
    issued by one `refresh()`;
-11. `bridge_silent`: the port's SWIM prober (`agent/membership.py`)
+15. `bridge_silent`: the port's SWIM prober (`agent/membership.py`)
    against a bridge over `ClusterSim(192, seed=3)` on the card must
    absorb 193 members, then down exactly the silently crashed members
    7, 63 and 150 by its own probe and suspicion; prints absorb and
    detect seconds;
-12. `bridge_scale`: `bridge_scale.rung(20_000, 50, "gossip")`, the
+16. `bridge_scale`: `bridge_scale.rung(20_000, 50, "gossip")`, the
    reference script's largest rung cut from 100,000 to 20,000 members
    (the rung is host-bound and ticks no kernel; the module's CLI keeps
    100,000): a dense `ClusterSim(20_000)` on the card, one prober that
@@ -86,7 +114,7 @@ result line is printed:
    (FP 0, cluster size 19,951). Prints absorb and detect seconds, the
    median ms of five `refresh()` calls, the peak device memory and the
    `nvidia-smi` line;
-13. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
+17. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
    JAX package's run on the CPU: `dense_100k.run` (the program of
    `scripts/dense_100k.py`: 16 feeds, chunk 25, shift) and `bench.py`'s
    configuration (pick with the inbox kernel, check every 5, device
@@ -95,24 +123,24 @@ result line is printed:
    be launched once per tick of the pick run (G = 65,536 packets of
    m = 5, slots 8), whose last launch's inputs it keeps for the kernels
    line;
-14. `dense_100k_pick`, the north star on the bench's path:
+18. `dense_100k_pick`, the north star on the bench's path:
    `bench.measure` at n=100,000 (`bench_params`: 4 feeds of 6,250; pick
    with the inbox kernel, fingers, target 0.999, check every 5) must
    converge with FP 0 and coverage >= 0.999, with one kernel launch per
    timed tick (G = 200,000 packets of m = 5, slots 8). Prints the stable
    tick, wall s, ms per tick, the peak device memory and the launches,
    and keeps the inputs of the run's last launch for the kernels line;
-15. `dense_100k_shift`: `dense_100k.run` at n=100,000, chunk 25 (the
+19. `dense_100k_shift`: `dense_100k.run` at n=100,000, chunk 25 (the
    reference script's program) must converge with FP 0; prints ticks,
    init s, first-dispatch s, convergence wall s, ms per tick and the
    peak device memory;
-16. `ladder`: `scale_ladder.py`'s rungs 1, 2 and 3 (n=128 with 5 %
+20. `ladder`: `scale_ladder.py`'s rungs 1, 2 and 3 (n=128 with 5 %
    churn; n=1,000, fanout 3, suspicion 3/6/9 with one crash; n=10,000
    with 1 % churn) on the card: every tick count, detection, crash
    count, false positive and coverage must equal `LADDER_REF`, the JAX
    package's rungs through the same code on the CPU. Wall times are
    printed;
-17. `pview_churn_ref`: `pview_converge.run` (the program of
+21. `pview_churn_ref`: `pview_converge.run` (the program of
    `scripts/pview_converge.py`) at n=8,192, K=512, in shift and in pick
    with the inbox kernel: each run's boot tick, its six stats and 14
    event totals, the detection tick of its 81 crashes, the stats and
@@ -120,37 +148,37 @@ result line is printed:
    (the JAX package's program on the CPU), with one kernel launch per
    pick tick; the pick run's last launch's inputs are kept for the
    kernels line;
-18. `pview_smoke`: `bench_smoke.run()` (n=2,048, K=256, boot through the
+22. `pview_smoke`: `bench_smoke.run()` (n=2,048, K=256, boot through the
    device loop, 1 % churn) must equal `SMOKE_REF`;
-19. `pview_flight`: `chaos_soak.kernel_flight_phase(7)` and
+23. `pview_flight`: `chaos_soak.kernel_flight_phase(7)` and
    `flaky_node_phase((3, 11))`, each publishing into a recorder of its
    own while the global one holds every earlier pview frame, must equal
    `FLIGHT_REF`; `churn_sweep.run_config` at n=2,048, K=256 for
    "baseline" and "lifeguard" must equal `SWEEP_REF`;
-20. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+24. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-21. `pview_churn_100k`: `pview_converge.run(100_000, 2048)`, the
+25. `pview_churn_100k`: `pview_converge.run(100_000, 2048)`, the
    script's default rung at full width, must converge on the four-term
    bar and detect all 1,000 crashes with FP 0 within its caps; prints
    the ticks beside the banked `A-convergence-100000`'s (a TPU run of
    older code: ticks only), the detected share at every churn check,
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
-22. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+26. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 200 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at every check from tick 50, and
    14 event totals at tick 200) with FP 0 and full tables; prints init
    s, wall, ms per tick and the peak device memory beside the 8.6 GB
    table (the run to the bar, which does not converge within 2,000
    ticks, is the CLI's);
-23. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+27. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-24. `torch.profiler` must see exactly one device kernel, and no memset,
+28. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -195,6 +223,7 @@ from corrosion_tpu_torch import (
     scale_ladder,
 )
 from corrosion_tpu_torch import inbox_bench as ib
+from corrosion_tpu_torch import ingest_bench, native, store_checks
 from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
@@ -216,6 +245,9 @@ from corrosion_tpu_torch.runtime.metrics import (
     kernel_event_totals,
 )
 from corrosion_tpu_torch.runtime.records import FLIGHT
+from corrosion_tpu_torch.types.base import Timestamp
+from corrosion_tpu_torch.types.change import SENTINEL, Change
+from corrosion_tpu_torch.types.pack import pack_columns
 
 SLICE_N = 10_000
 SLICE_EXPECT = {"pick": 70, "shift": 55}  # JAX package, same config + seed
@@ -277,6 +309,90 @@ CRDT_REF = {
         ((424, 366, 65112, 0), False, "26ea4f962757e249b03dffa127190c77"
          "98e7cabcea31fb6f1eddf7b066dccb17"),
     ],
+}
+
+# The JAX package's CrdtStore on the CPU, python engine, over the same
+# inputs (`python -m tests.test_torch_store`): per case of
+# `store_checks.parity_cases`, sha256 of the final dump and the impactful
+# changes in order.
+STORE_PARITY_REF = {
+    'randomized_0': 'c64b15fb83cd984305d7e5c5339bf5befbcb9524a99d8ef04c662401e4de5e25',
+    'randomized_1': '4a94e067187ebc5d16182008a37da91a600b390eb4bc838de71590e31d9a6bd9',
+    'randomized_2': '61c5e6ee6cab01fe82162735c8c4d1a83d62e383257ba6bea2ec37c4d25b7c1b',
+    'randomized_3': '494421e1e28014f09500121226195a3de178122e056256f9001d4e18710b90ab',
+    'rich_0': '09d6d012c27c5397cd6abb0903c7b83e9a5f283325e5f7a585e6431ec1864b40',
+    'rich_1': '38fe879ef891cb4948fdbd724669a42a5491dabbce8688e1dbf8bed91296de0f',
+    'rich_2': '694f5356f660f7df26c73d1508145b2a9f24625af900f469bb33d0d07633643d',
+    'rich_3': 'be7e559c144edde4cf5c0a1ad88e308e92d2c2cf450b41c13547b26f47495737',
+    'split_13': 'c248da8431d05df115849e5f84a019db528a9570c9756cc75d73848ae567ba41',
+    'rich_split_11': 'ac112e5d410a8d9c0348a33d5ff7719b45381220a6af73581b4c2a81098bdbc3',
+    'even_cl_0': 'ab40b846412c9c0224804b2d9a78e2723de38149b5d971f3e1d680cf3743cab9',
+    'even_cl_1': 'e599c9da2447bc8c0b3159429631eba9e0888fe286e320586529d19dcfdab49f',
+    'even_cl_2': 'bb93294ccddbd7147be25b17ceb8ffb530710b36e2060814c938b0623742eff4',
+    'even_cl_3': '38c09908b826ce45c33652c41badf08e0ec7c29f0eea7d96c1455763506f58cc',
+    'tie_0': 'f9789ca943c3729097114de9b3ba7ed8c6ab34f6c081cabe3bdef208fa0e787c',
+    'tie_1': 'cff544a57b86bb60ea67ad380f8f872caa2428bee132f7067dcb19e81a5539e3',
+}
+
+# The same store after `ingest_bench`'s two remote rungs (20,000 changes
+# in batches of 500 into a file): sha256 of `crdt_bench.dump_state`.
+INGEST_REF = {
+    'ingest-remote': '5b84ff88b1e535d6b1fe87adc9691fa91a44ebeaf417a75370779a580d1382a7',
+    'ingest-conflict': '8d2c0b2e1c04e06d7c5b118684637b08662507c07b30c8c194dedb6e9ff2ab42',
+}
+
+# The JAX package's CrdtStore on the CPU through `crdt_bench.bench_engine`
+# over the reference script's schedule (`python -m tests.test_torch_store`):
+# per size, sha256 of the final state (python engine; its array engine ends
+# at the same), and what its array engine's `crdt_merge` lane saw over the
+# three timed batches: batches decided and declined, event totals.
+STORE_FLOOD_REF = {
+    512: {
+        "digest": "e457f29441b6c1c68d7e01cc3a6221d9"
+                  "181591f40a4ab8c6f0e68729a1f78a53",
+        "decided": 3, "declined": 0,
+        "events": {"decide_won": 1254.0, "decide_transition": 989.0,
+                   "decide_stale": 282.0, "decide_ambiguous": 0.0},
+    },
+    4096: {
+        "digest": "c2c6ef840472768a48267004c1fb1b4b"
+                  "cfa9431ce2be0c77e63e8e82c4521a44",
+        "decided": 3, "declined": 0,
+        "events": {"decide_won": 4335.0, "decide_transition": 2131.0,
+                   "decide_stale": 7953.0, "decide_ambiguous": 0.0},
+    },
+    16384: {
+        "digest": "d8e0752b08e7a9cd3de61ba9edb9b0f0"
+                  "bec9034df7b1502701d5f7a49f3226ad",
+        "decided": 3, "declined": 0,
+        "events": {"decide_won": 7400.0, "decide_transition": 3439.0,
+                   "decide_stale": 41752.0, "decide_ambiguous": 0.0},
+    },
+    65536: {
+        "digest": "8d5c3ea06accb9e0c932a909ce157517"
+                  "86d0ef2723dbb41af3fc7cbafee6c28c",
+        "decided": 3, "declined": 0,
+        "events": {"decide_won": 9710.0, "decide_transition": 4801.0,
+                   "decide_stale": 186898.0, "decide_ambiguous": 0.0},
+    },
+}
+
+# The JAX package's three stores through `store_checks.replica_run`
+# (`python -m tests.test_torch_store_writes`): each replica's dump
+# (clocks without ts), its converged part, and what each exported.
+REPLICA_REF = {
+    "replicas": {
+        1: 'c2e2d42d7bcd4651d66bd8f8932194b7f687daa3edccd18acab9a85141f5047a',
+        2: 'fb111636e589b13d49eecfda64b1c2b8c3f3a41a3a606829a3bead721761e8e0',
+        3: '2bae773d43669ddd721f87f2566aef390df0124f303ff44402a0816e7c047907',
+    },
+    "converged": {
+        1: 'd3c540b3497ac8d2d43195f0a78a714fa13a41f085a0a1a8606d39b75e646872',
+        2: 'd3c540b3497ac8d2d43195f0a78a714fa13a41f085a0a1a8606d39b75e646872',
+        3: 'd3c540b3497ac8d2d43195f0a78a714fa13a41f085a0a1a8606d39b75e646872',
+    },
+    "versions": {1: 816, 2: 804, 3: 806},
+    "bytes": {1: 293147, 2: 284231, 3: 279917},
 }
 
 # sha256 of the JAX package's bridge replies to `bridge_scale.wire_replies`
@@ -839,12 +955,11 @@ def crdt_parity_cases() -> list:
     against the CPU."""
     cases = [(f"rows_{r}", crdt_bench.scale_inputs(r, i), None)
              for i, r in enumerate((64, 4096, 2**20))]
-    site, sent = bytes([1]) * 16, crdt_merge.SENTINEL
+    site, sent = bytes([1]) * 16, SENTINEL
 
     def ch(row, cid, val, cl, cv, dbv):
-        return crdt_bench.Change(
-            "kv", crdt_bench.pk_bytes(row), cid, val, cv, dbv, 0, site, cl,
-            crdt_bench.Timestamp.from_unix(dbv))
+        return Change("kv", pack_columns([row]), cid, val, cv, dbv, 0, site,
+                      cl, Timestamp.from_unix(dbv))
 
     rng = np.random.default_rng(5)
     batches = [
@@ -948,6 +1063,109 @@ def phase_crdt_slice(dev) -> dict:
                 "size", "device_ops", "htod_copies", "dtoh_copies")},
             "scale_rows": crdt_bench.SCALE_ROWS,
             "scale_device_ms": crdt_bench.scale_point_ms(dev)}
+
+
+def _lane_counts(lane: dict) -> tuple:
+    return lane["decided"], lane["declined"]
+
+
+def phase_store_parity(dev) -> dict:
+    """The parity workload through the port's store: `array` on the card
+    and on the CPU, and `python`; every case's digest must equal
+    `STORE_PARITY_REF`, and the card's array engine must decide and
+    decline the batches its CPU run does (the two value ties decline)."""
+    got, lanes = {}, {}
+    for engine, where in (("array", dev), ("array", "cpu"),
+                          ("python", dev)):
+        with crdt_bench.engine_env(engine):
+            mark = crdt_bench.lane_mark()
+            digests = store_checks.parity_digests(store_checks.port_api(where))
+            lanes[f"{engine}@{where}"] = crdt_bench.lane_since(mark)
+        bad = sorted(k for k, v in STORE_PARITY_REF.items()
+                     if digests.get(k) != v)
+        if bad or set(digests) != set(STORE_PARITY_REF):
+            raise AssertionError(f"store parity, {engine} on {where}: cases "
+                                 f"{bad} differ from STORE_PARITY_REF")
+        got[f"{engine}@{where}"] = len(digests)
+    card, cpu = lanes[f"array@{dev}"], lanes["array@cpu"]
+    if card != cpu or card["declined"] != 2 or card["decided"] == 0:
+        raise AssertionError(f"store parity lanes: card {card}, CPU {cpu}")
+    return {"phase": "store_parity", "ok": True, "cases": got,
+            "array_batches": {"decided": card["decided"],
+                              "declined": card["declined"]},
+            "native": native.status()}
+
+
+def phase_store_flood(dev) -> dict:
+    """`crdt_bench.run_ab` at the script's schedule: per size, all three
+    engines' final states equal `STORE_FLOOD_REF`, and the array engine's
+    lane (batches decided and declined on the card, event totals) equals
+    the JAX package's array engine over the same store run."""
+    libs = native.status()
+    if not libs["merge_batch"]:
+        raise AssertionError("the native merge engine did not load: the "
+                             "native column would be the Python engine")
+    ab = crdt_bench.run_ab(device=dev)
+    for rung in ab["rungs"]:
+        size = rung["batch_size"]
+        ref = STORE_FLOOD_REF[size]
+        e2e = {r["engine"]: r for r in rung["end_to_end"]}
+        bad = [e for e, r in e2e.items() if r["digest"] != ref["digest"]]
+        lane = e2e["array"]["lane"]
+        want = {k: ref[k] for k in ("decided", "declined", "events")}
+        if bad or lane != want or lane["decided"] == 0:
+            raise AssertionError(f"store flood {size}: engines {bad} off the "
+                                 f"reference's state; array lane {lane}, "
+                                 f"reference {want}")
+        dec = {r["engine"]: r for r in rung["decision_only"]}
+        emit({"phase": "store_flood_rung", "size": size,
+              "changes_per_s": {e: r["changes_per_s"] for e, r in e2e.items()},
+              "wall_s": {e: r["wall_s"] for e, r in e2e.items()},
+              "decisions_per_s": {e: r["decisions_per_s"]
+                                  for e, r in dec.items()},
+              "array_split_ms": dec["array"].get("split_ms"),
+              "array_batches": _lane_counts(lane), "ok": True})
+    return {"phase": "store_flood", "ok": True, "native": libs,
+            "sizes": [r["batch_size"] for r in ab["rungs"]],
+            "card": [ab["device_kind"], ab["power_limit_w"]]}
+
+
+def phase_store_ingest(dev) -> dict:
+    """`ingest_bench.run`: both remote rungs under each engine end at
+    `INGEST_REF`."""
+    mark = crdt_bench.lane_mark()
+    run = ingest_bench.run(device=dev)
+    lane = crdt_bench.lane_since(mark)
+    bad = [(r["rung"], r["engine"]) for r in run["rungs"]
+           if r["digest"] != INGEST_REF[r["rung"]]]
+    if bad or lane["decided"] == 0:
+        raise AssertionError(f"ingest rungs {bad} off INGEST_REF; array "
+                             f"lane {lane}")
+    return {"phase": "store_ingest", "ok": True,
+            "rows_per_s": {f"{r['rung']}/{r['engine']}": r["rows_per_s"]
+                           for r in run["rungs"]},
+            "array_batches": _lane_counts(lane)}
+
+
+def phase_store_replicas(dev) -> dict:
+    """Three port stores on the card with `array` write, exchange their
+    versions through the changeset codec and converge: every replica's
+    dump equals `REPLICA_REF` (the JAX package's stores doing the same),
+    and the converged part is one state."""
+    with crdt_bench.engine_env("array"):
+        mark = crdt_bench.lane_mark()
+        t0 = time.monotonic()
+        got = store_checks.replica_digests(store_checks.port_api(dev))
+        wall = time.monotonic() - t0
+        lane = crdt_bench.lane_since(mark)
+    if (got != REPLICA_REF or len(set(got["converged"].values())) != 1
+            or lane["decided"] == 0):
+        raise AssertionError(f"replicas {got} differ from REPLICA_REF "
+                             f"{REPLICA_REF}; array lane {lane}")
+    return {"phase": "store_replicas", "ok": True, "wall_s": wall,
+            "txs_per_replica": store_checks.REPLICA_TXS,
+            "versions": got["versions"], "bytes": got["bytes"],
+            "array_batches": _lane_counts(lane)}
 
 
 def phase_bridge_wire(dev) -> dict:
@@ -1427,6 +1645,10 @@ def main() -> int:
     emit(phase_pview_slice(dev, "shift"))
     emit(phase_crdt_parity(dev))
     emit(phase_crdt_slice(dev))
+    emit(phase_store_parity(dev))
+    emit(phase_store_flood(dev))
+    emit(phase_store_ingest(dev))
+    emit(phase_store_replicas(dev))
     emit(phase_bridge_wire(dev))
     emit(phase_bridge_silent(dev))
     emit(phase_bridge_scale(dev))

@@ -6,7 +6,9 @@ of numpy arrays with the same field names, a key becomes a [2] uint32
 array, and `SwimParams` or `PViewParams` becomes its `_asdict()`. The
 CRDT merge engine has no weights and no state on the device: what it
 carries across is the reference `_merge_kernel`'s inputs, the thirteen
-row arrays and two segment counts.
+row arrays and two segment counts. The store's state is its database
+file, which either package opens; its inputs are changes, which
+`changes_to_port` carries across field by field.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.ops.swim import SwimParams, SwimState
 from corrosion_tpu_torch.ops.swim_pview import PViewParams, PViewState
 from corrosion_tpu_torch.runtime.device import resolve_device
+from corrosion_tpu_torch.types.base import Timestamp
+from corrosion_tpu_torch.types.change import Change
 
 
 def _state_from_numpy(cls, fields: Dict[str, np.ndarray], device):
@@ -120,3 +124,20 @@ def crdt_inputs_to_torch(arrays, device) -> dict:
     out["num_groups"] = int(arrays["num_groups"])
     out["num_cells"] = int(arrays["num_cells"])
     return out
+
+
+def change_to_port(ch) -> Change:
+    """The port's `Change` from any object with the reference `Change`'s
+    fields (table, pk, cid, val, col_version, db_version, seq, site_id,
+    cl, and ts with `ntp64`). The cached wire bytes are not carried: the
+    port's codec re-encodes them to the same bytes."""
+    return Change(
+        table=ch.table, pk=bytes(ch.pk), cid=ch.cid, val=ch.val,
+        col_version=ch.col_version, db_version=ch.db_version, seq=ch.seq,
+        site_id=bytes(ch.site_id), cl=ch.cl, ts=Timestamp(ch.ts.ntp64),
+    )
+
+
+def changes_to_port(chs) -> list:
+    """`change_to_port` of each change, in order."""
+    return [change_to_port(ch) for ch in chs]

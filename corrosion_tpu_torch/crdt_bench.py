@@ -1,38 +1,52 @@
-"""The CRDT merge engine's decision plane at sync-flood batch sizes.
+"""The CRDT merge engines at sync-flood batch sizes: the port's
+`scripts/bench_crdt_merge.py`, the decision plane alone and the store A/B.
 
     python -m corrosion_tpu_torch.crdt_bench [--profile]
+    python -m corrosion_tpu_torch.crdt_bench --ab [--sizes 512,4096]
+        [--hot-rows 2048] [--out PATH]
 
-The port's counterpart of the decision part of
-`scripts/bench_crdt_merge.py`, with its schedule: `random.Random(1234)`,
-batch sizes 512, 4,096, 16,384 and 65,536 over 2,048 hot rows, and per
-size a warm batch of min(size, 2,048) changes, then three batches
-(`schedule`). `run_rung` decides a size's warm batch on a fresh state,
-then its three batches in sequence through `ops.crdt_merge.
+The schedule is the script's: `random.Random(1234)`, batch sizes 512,
+4,096, 16,384 and 65,536 over 2,048 hot rows, and per size a warm batch
+of min(size, 2,048) changes, then three batches (`schedule`).
+
+Decision plane: `run_rung` decides a size's warm batch on a fresh
+state, then its three batches in sequence through `ops.crdt_merge.
 merge_table_array` on one state dict: a pk starts fresh (cl 0, an empty
-clock) and each later batch sees the earlier ones' results, its prefetched
-values (`disk`) being the cell values so far (`vals`). Per batch it
-records the decision's digest and its time split: host marshal,
+clock) and each later batch sees the earlier ones' results, its
+prefetched values (`disk`) being the cell values so far (`vals`). Per
+batch it records the decision's digest and its time split: host marshal,
 host-to-device copy, device (CUDA events around the decision program),
-readback and plan rebuild.
+readback and plan rebuild. It prints one JSON line: the card's
+`nvidia-smi` name and power limit, per size the decisions per second,
+each batch's split and the peak device memory, and the decision
+program's device ms alone on 2^20 rows (`scale_inputs`), which shows how
+the device part scales past the largest batch. `--profile` instead runs
+one 65,536 batch under `torch.profiler` and prints the top device ops
+and the op count per batch.
 
-Prints one JSON line: the card's `nvidia-smi` name and power limit, per
-size the decisions per second, each batch's split and the peak device
-memory, and the decision program's device ms alone on 2^20 rows
-(`scale_inputs`: the same mix of groups, cells, sentinels, even and odd
-causal lengths and inexact digests, made with numpy from a seed), which
-shows how the device part scales past the largest batch. `--profile`
-instead runs one 65,536 batch under `torch.profiler` and prints the top
-device ops and the op count per batch. It runs on the card only.
+Store A/B (`--ab`, `run_ab`): the script's three engines (`python`,
+`native`, `array`, selected by `CORRO_CRDT_ENGINE`) through the same
+store path, `CrdtStore.apply_changes` into SQLite on `:memory:`: phase A
+snapshot reads, phase B decisions, phase C flush. Per size and engine,
+end to end (`bench_engine`: a warm batch, then the three batches, each
+applied as a deep copy) with the final state's digest, and phase B alone
+on a fresh-store snapshot (`bench_decision_only`: 5 reps after a warm
+one; the array engine's last rep adds its phase split). For the array
+engine the `crdt_merge` lane says how many batches the decision program
+decided and how many it declined to the host engines. A record is
+written only to `--out`. Every mode runs on the card only.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import hashlib
 import json
+import os
 import random
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -40,48 +54,35 @@ import torch
 from corrosion_tpu_torch.convert import crdt_inputs_to_torch
 from corrosion_tpu_torch.inbox_bench import median_ms
 from corrosion_tpu_torch.ops import crdt_merge
-from corrosion_tpu_torch.ops.crdt_merge import SENTINEL, _pad, value_digest
+from corrosion_tpu_torch.ops.crdt_merge import _pad, value_digest
 from corrosion_tpu_torch.profile_tick import _device_us
-from corrosion_tpu_torch.runtime.device import nvidia_smi, resolve_device
+from corrosion_tpu_torch.runtime.device import (
+    card_line,
+    nvidia_smi,
+    resolve_device,
+    sync,
+)
+from corrosion_tpu_torch.runtime.metrics import (
+    CRDT_MERGE_EVENTS,
+    METRICS,
+    kernel_event_totals,
+)
+from corrosion_tpu_torch.runtime.records import FLIGHT
+from corrosion_tpu_torch.store.crdt import CrdtStore
+from corrosion_tpu_torch.types.actor import ActorId
+from corrosion_tpu_torch.types.base import Timestamp
+from corrosion_tpu_torch.types.change import SENTINEL, Change
+from corrosion_tpu_torch.types.pack import pack_columns
 
 SIZES = (512, 4096, 16384, 65536)
 HOT_ROWS = 2048
 SEED = 1234
 SCALE_ROWS = 2**20
-
-
-@dataclass(frozen=True)
-class Timestamp:
-    """An NTP64 timestamp: seconds in the upper 32 bits, the fraction in
-    the lower."""
-
-    ntp64: int = 0
-
-    @classmethod
-    def from_unix(cls, secs: float) -> "Timestamp":
-        whole = int(secs)
-        return cls((whole << 32) | (int((secs - whole) * 2**32) & 0xFFFFFFFF))
-
-
-@dataclass
-class Change:
-    """One `crsql_changes` row, with the fields the merge engine reads."""
-
-    table: str
-    pk: bytes
-    cid: str
-    val: object
-    col_version: int
-    db_version: int
-    seq: int
-    site_id: bytes
-    cl: int
-    ts: Timestamp = Timestamp(0)
-
-
-def pk_bytes(row: int) -> bytes:
-    """The pk of an integer row id: opaque identity, one per row."""
-    return row.to_bytes(8, "big", signed=True)
+ENGINES = ("python", "native", "array")
+KV_SCHEMA = (
+    "CREATE TABLE kv (id INTEGER NOT NULL PRIMARY KEY,"
+    " a TEXT NOT NULL DEFAULT '', b INTEGER NOT NULL DEFAULT 0);"
+)
 
 
 def synth_batch(rng: random.Random, n: int, hot_rows: int) -> list:
@@ -93,7 +94,7 @@ def synth_batch(rng: random.Random, n: int, hot_rows: int) -> list:
     dbv = {s: 0 for s in sites}
     for _ in range(n):
         site = rng.choice(sites)
-        pk = pk_bytes(rng.randint(1, hot_rows))
+        pk = pack_columns([rng.randint(1, hot_rows)])
         r = rng.random()
         if r < 0.05:
             cl, cid, val, cv = rng.choice([2, 4]), SENTINEL, None, 1
@@ -301,14 +302,207 @@ def profile_batch(device, size: int = SIZES[-1], top: int = 12) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the store A/B
+
+
+@contextlib.contextmanager
+def engine_env(engine: str, var: str = "CORRO_CRDT_ENGINE"):
+    """`var` set to `engine` inside the block, restored after it."""
+    old = os.environ.get(var)
+    os.environ[var] = engine
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = old
+
+
+def mk_store(device=None, path: str = ":memory:",
+             schema: str = KV_SCHEMA) -> CrdtStore:
+    """The script's store: site id 9, the `kv` schema (a, b)."""
+    st = CrdtStore(path, site_id=ActorId(bytes([9]) * 16), device=device)
+    st.apply_schema_sql(schema)
+    return st
+
+
+def dump_state(store, clock_ts: bool = True) -> dict:
+    """A store's replicated state, read by SQL (either package's store):
+    every user table's rows, its `__crdt_rows` and `__crdt_clock` tables,
+    and `__crdt_db_versions`. `clock_ts=False` leaves the clocks' `ts`
+    out, as the reference's replica checks do: it is the origin's own
+    bookkeeping, and a replica applying a changeset stores 0 there."""
+    conn = store._conn
+    clock_cols = "*" if clock_ts else \
+        "pk, cid, col_version, db_version, seq, site_id"
+    out = {}
+    for tbl in sorted(store.schema.tables):
+        out[tbl] = [tuple(r) for r in conn.execute(
+            f'SELECT * FROM "{tbl}" ORDER BY 1, 2')]
+        out[tbl + "__crdt_rows"] = [tuple(r) for r in conn.execute(
+            f'SELECT * FROM "{tbl}__crdt_rows" ORDER BY pk')]
+        out[tbl + "__crdt_clock"] = [tuple(r) for r in conn.execute(
+            f'SELECT {clock_cols} FROM "{tbl}__crdt_clock"'
+            " ORDER BY pk, cid")]
+    out["versions"] = [tuple(r) for r in conn.execute(
+        "SELECT site_id, db_version FROM __crdt_db_versions"
+        " ORDER BY site_id")]
+    return out
+
+
+def state_digest(store) -> str:
+    """sha256 of `dump_state` (its repr: values keep their SQLite
+    types)."""
+    return hashlib.sha256(repr(dump_state(store)).encode()).hexdigest()
+
+
+def lane_mark(flight=FLIGHT, registry=METRICS,
+              totals=kernel_event_totals) -> tuple:
+    """Where the `crdt_merge` lane stands: its next host-frame tick and
+    its event totals (`lane_since` reads what came after)."""
+    last = flight.window(1, kernel="crdt_merge")
+    tick = last[-1]["tick"] + 1 if last else 0
+    return tick, dict(totals(registry).get("crdt_merge", {}))
+
+
+def lane_since(mark: tuple, flight=FLIGHT, registry=METRICS,
+               totals=kernel_event_totals) -> dict:
+    """The batches the decision program decided and declined since
+    `mark` (one host frame each; a declined one carries only its
+    ambiguity count), and the lane's event deltas."""
+    tick0, before = mark
+    frames = [f for f in flight.window(1 << 20, kernel="crdt_merge")
+              if f["tick"] >= tick0]
+    declined = sum(f["events"].get("decide_ambiguous", 0) > 0
+                   for f in frames)
+    after = totals(registry).get("crdt_merge", {})
+    return {"decided": len(frames) - declined, "declined": declined,
+            "events": {k: after.get(k, 0.0) - before.get(k, 0.0)
+                       for k in CRDT_MERGE_EVENTS}}
+
+
+def bench_engine(engine: str, batches, warm_batch, device=None,
+                 new_store=None, lane=None) -> dict:
+    """The script's end-to-end rung of one engine: a fresh store, the warm
+    batch, then the batches, each applied as a deep copy, on the host
+    clock (ending in a sync of `device`). Adds the final state's digest
+    and, with `lane` (a (flight, registry, totals) triple), what the
+    `crdt_merge` lane saw over the timed batches."""
+    dev = resolve_device(device) if new_store is None else None
+    with engine_env(engine):
+        st = mk_store(dev) if new_store is None else new_store()
+        st.apply_changes(copy.deepcopy(warm_batch))
+        mark = lane_mark(*lane) if lane else None
+        t0 = time.monotonic()
+        total = 0
+        for batch in batches:
+            st.apply_changes(copy.deepcopy(batch))
+            total += len(batch)
+        if dev is not None:
+            sync(dev)
+        wall = time.monotonic() - t0
+    rec = {
+        "engine": engine,
+        "changes": total,
+        "wall_s": wall,
+        "changes_per_s": total / wall if wall > 0 else None,
+        "digest": state_digest(st),
+    }
+    if lane:
+        rec["lane"] = lane_since(mark, *lane)
+    st.close()
+    return rec
+
+
+def bench_decision_only(engine: str, batch, device=None) -> dict:
+    """Phase B alone on a fresh-store snapshot (empty local state): 5 reps
+    after a warm one. The array engine's last rep records its phase split
+    (marshal, h2d, device, readback, rebuild ms)."""
+    dev = resolve_device(device)
+    with engine_env(engine):
+        st = mk_store(dev)
+    base = {pk: {"cl": 0, "clock": {}, "vals": {}, "disk": {}}
+            for pk in {c.pk for c in batch}}
+    split: dict = {}
+
+    def run_once():
+        stx = copy.deepcopy(base)
+        plans = ({}, set(), {}, {}, set(), set())
+        if engine == "array":
+            split.clear()
+            return crdt_merge.merge_table_array(
+                st, "kv", batch, stx, *plans, device=dev, record=split)
+        if engine == "native":
+            return st._merge_table_native(st._merge_lib, "kv", batch, stx,
+                                          *plans)
+        return st._merge_table_python("kv", batch, stx, *plans)
+
+    run_once()  # warm
+    reps = 5
+    t0 = time.monotonic()
+    for _ in range(reps):
+        out = run_once()
+    wall = (time.monotonic() - t0) / reps
+    st.close()
+    rec = {
+        "engine": engine,
+        "declined": out is None,
+        "decision_wall_s": wall,
+        "decisions_per_s": len(batch) / wall if wall > 0 else None,
+    }
+    if split:
+        split.pop("outputs", None)
+        rec["split_ms"] = split
+    return rec
+
+
+def run_ab(sizes=SIZES, hot_rows: int = HOT_ROWS, device=None,
+           engines=ENGINES) -> dict:
+    """The script's A/B over `schedule(sizes, hot_rows)`: per size, each
+    engine end to end (`bench_engine`, the array engine's lane included)
+    and decision-only on the first batch (`bench_decision_only`), with
+    the card's name and power limit."""
+    dev = resolve_device(device)
+    out = {**card_line(dev), "device": str(dev), "hot_rows": hot_rows,
+           "rungs": []}
+    for size, warm, batches in schedule(sizes, hot_rows):
+        rung = {"batch_size": size, "end_to_end": [], "decision_only": []}
+        for engine in engines:
+            lane = ((FLIGHT, METRICS, kernel_event_totals)
+                    if engine == "array" else None)
+            rung["end_to_end"].append(
+                bench_engine(engine, batches, warm, dev, lane=lane))
+            rung["decision_only"].append(
+                bench_decision_only(engine, batches[0], dev))
+        out["rungs"].append(rung)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one 65,536 batch instead")
+    ap.add_argument("--ab", action="store_true",
+                    help="the store A/B of the three engines instead")
+    ap.add_argument("--sizes", default=",".join(map(str, SIZES)))
+    ap.add_argument("--hot-rows", type=int, default=HOT_ROWS)
+    ap.add_argument("--out", default=None,
+                    help="write the --ab record here (nothing is written "
+                         "without it)")
     args = ap.parse_args(argv)
     dev = resolve_device()
     out = {"nvidia_smi": nvidia_smi(), "kind": torch.cuda.get_device_name(dev)}
-    if args.profile:
+    if args.ab:
+        sizes = [int(x) for x in args.sizes.split(",")]
+        out.update(run_ab(sizes, args.hot_rows, dev))
+        out["measured_at"] = time.strftime("%Y-%m-%d %H:%M:%S",
+                                           time.gmtime())
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+    elif args.profile:
         out["profile"] = profile_batch(dev)
     else:
         out["rungs"] = [run_rung(size, dev, (warm, batches))

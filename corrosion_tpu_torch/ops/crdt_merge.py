@@ -52,8 +52,8 @@ from corrosion_tpu_torch.runtime.metrics import (
     record_kernel_events,
 )
 from corrosion_tpu_torch.runtime.records import FLIGHT
-
-SENTINEL = "-1"
+from corrosion_tpu_torch.store.crdt import _clock_entry
+from corrosion_tpu_torch.types.change import SENTINEL
 
 _F64_EXACT = 1 << 53
 _I32_MIN = -(2**31)
@@ -112,12 +112,6 @@ def value_digest(val) -> tuple:
     d2 = (w >> 28) & 0xFFFFFFF
     d3 = w & 0xFFFFFFF
     return d0, d1, d2, d3, exact
-
-
-def _clock_entry(ch, col_version: int) -> tuple:
-    """One clock-row plan: (col_version, db_version, seq, site_id,
-    ts.ntp64), as the store writes it."""
-    return (col_version, ch.db_version, ch.seq, ch.site_id, ch.ts.ntp64)
 
 
 def _pad(n: int) -> int:

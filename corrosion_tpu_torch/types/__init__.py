@@ -1,2 +1,3 @@
-"""Identity types and wire primitives of the PyTorch port (the SWIM wire's
-actors, timestamps and byte reader/writer)."""
+"""Identity types, wire primitives and the CRDT change types of the
+PyTorch port: actors and timestamps, SQLite values, the pk pack format,
+range sets, changes and changesets, and the byte codecs."""

@@ -22,6 +22,14 @@ class ActorId:
         if len(self.bytes16) != 16:
             raise ValueError("ActorId must be 16 bytes")
 
+    @classmethod
+    def new_random(cls) -> "ActorId":
+        return cls(uuid.uuid4().bytes)
+
+    @classmethod
+    def zero(cls) -> "ActorId":
+        return cls(b"\x00" * 16)
+
     def as_uuid(self) -> uuid.UUID:
         return uuid.UUID(bytes=self.bytes16)
 
