@@ -42,8 +42,10 @@ result line is printed:
    ticks), the wall per tick of 10 more ticks with no stats pass, and the
    median of three stats passes;
 8. the CRDT merge engine's decision program (`ops/crdt_merge.py::
-   _merge_kernel`) on the card against the same function on the CPU,
-   all ten outputs exactly equal: seeded inputs of 64, 4,096 and 2^20
+   _merge_kernel`) on the card as `merge_table_array` runs it there
+   (`run_packed`: the packed inputs, the shape's CUDA graph replayed)
+   against the same function op by op on the CPU, all ten outputs
+   exactly equal: seeded inputs of 64, 4,096 and 2^20
    rows (`crdt_bench.scale_inputs`), and batches marshaled from changes:
    two digest ties that must come out ambiguous (`"y"*20` against
    `"y"*30`, 2^53 against 2^53 + 1), one change, sentinels only, one pk
@@ -56,11 +58,11 @@ result line is printed:
    the batches' event lanes, `FLIGHT` must gain one frame per batch, and
    each batch must read back once (`read_decisions.readbacks`; and
    `torch.profiler` must see one device-to-host copy and one
-   host-to-device copy per input in a profiled batch, after the timed
-   ones). Prints per size the decisions per
+   host-to-device copy of the packed inputs in a profiled batch, after
+   the timed ones). Prints per size the decisions per
    second, each batch's split (marshal, host-to-device, device,
    readback, rebuild) and the peak device memory, then the decision
-   program's device ms alone on 2^20 rows;
+   program's device ms alone on 2^20 rows (its graph replayed);
 10. `store_parity`: the store workload of `store_checks.parity_cases`
    (120-180 random changes per case, rich values, split batches, even
    causal lengths with a non-sentinel cid, two value ties the decision
@@ -89,7 +91,51 @@ result line is printed:
    versions through the changeset codec and apply the other two's in
    orders of their own (`store_checks.replica_run`): the three must reach
    one converged state, and each replica must equal `REPLICA_REF`;
-14. the kernel-peer bridge's wire (`bridge_wire`): a `KernelPeerBridge`
+14.-17. the agent phases and `store_ingest_threads`, side by side, each
+   in a child process of this script (`--child-phase NAME`): each is
+   host-bound under an interpreter lock of its own, and the card serves
+   their decision programs, one CUDA graph replay per batch, in turn.
+   Each line adds its process's wall. `store_ingest_threads`
+   (`ingest_bench.apply_concurrently`, printed first): the remote rungs
+   of `store_ingest` under `array` into three stores each at once, every
+   store fed in order by a thread of its own, so six threads replay the
+   decision program's graphs together: every store must end at its
+   rung's `INGEST_REF` and have decided batches on the card. Prints the
+   wall and the graph cache (`crdt_merge.replay_stats`);
+14. `agent_cluster`: six port agents (`agent_checks.cluster_run` at
+   `CHIP_CLUSTER`, the shape of the JAX package's stress test on a
+   random bootstrap topology, `random.Random(4242)`, `MemNetwork(seed=
+   23)`), their stores on the card with `array`: each writes 50
+   transactions of 20 rows into its own id range, then all six write the
+   same 100 ids with values of their own. Every agent's disjoint rows
+   must equal `AGENT_REF` (the JAX package's agents doing the same on the
+   CPU), the shared ids must be equal across the six, every writer's
+   versions booked by every peer with one `held_total`, the cluster size
+   6 everywhere, and the decision program must have decided batches.
+   Prints the wall to convergence, the process's graph cache (shapes,
+   captures, their seconds and reserved bytes, evictions) and its peak
+   reserved device memory;
+15. `agent_sync_100k`: `sync_bench.run_rung(100_000, False, 17)`, the
+   delta rung of `scripts/bench_sync.py`: a cold node catches up the
+   origin's 100,000 rows (50 versions) by delta sync, under `array` and,
+   in a process of its own, under `python`. Each run must meet the
+   script's bar (rows, `held_total` and clock rows equal the origin's)
+   and equal `SYNC_REF` (100,000 rows, 200,000 clock rows, the rows'
+   digest), and under `array` the stores must have decided batches on
+   the card. Prints per engine the wall to convergence, the changes
+   received by sync and per second, the cold node's rows per second,
+   the changes that reached it by broadcast and by sync, the array lane,
+   the graph cache and the peak reserved device memory;
+16. `agent_sync_100k_fire`: the same rung under `array` with the
+   script's concurrent writer (10 rows every 50 ms) until the cold node
+   is within five of its transactions: after the writer stops, the exact
+   bar must close. Prints the fire rows written;
+17. `agent_local_writes`: `ingest_bench.run_local`, the six local-write
+   rungs of `scripts/bench_ingest.py` (1, 4 and 16 writers over 576
+   transactions of 10 rows, and their `-durable` forms) through one port
+   agent's `make_broadcastable_changes`: each rung's rows must equal
+   `INGEST_LOCAL_REF`. Prints rows per second, commit p50 and p99;
+18. the kernel-peer bridge's wire (`bridge_wire`): a `KernelPeerBridge`
    over `ClusterSim(192, seed=3)` on the card and another on the CPU,
    each on its own `MemNetwork`, get `bridge_scale.wire_replies`'s
    scripted datagrams (PING, ANNOUNCE, PING_REQ for a live, a crashed
@@ -101,12 +147,12 @@ result line is printed:
    host's timeline must show no aten op and no CUDA call while the
    card's bridge serves a round, and one or two device-to-host copies
    issued by one `refresh()`;
-15. `bridge_silent`: the port's SWIM prober (`agent/membership.py`)
+19. `bridge_silent`: the port's SWIM prober (`agent/membership.py`)
    against a bridge over `ClusterSim(192, seed=3)` on the card must
    absorb 193 members, then down exactly the silently crashed members
    7, 63 and 150 by its own probe and suspicion; prints absorb and
    detect seconds;
-16. `bridge_scale`: `bridge_scale.rung(20_000, 50, "gossip")`, the
+20. `bridge_scale`: `bridge_scale.rung(20_000, 50, "gossip")`, the
    reference script's largest rung cut from 100,000 to 20,000 members
    (the rung is host-bound and ticks no kernel; the module's CLI keeps
    100,000): a dense `ClusterSim(20_000)` on the card, one prober that
@@ -114,7 +160,7 @@ result line is printed:
    (FP 0, cluster size 19,951). Prints absorb and detect seconds, the
    median ms of five `refresh()` calls, the peak device memory and the
    `nvidia-smi` line;
-17. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
+21. `dense_ref`: the dense tick at n=32,768 against `DENSE_REF`, the
    JAX package's run on the CPU: `dense_100k.run` (the program of
    `scripts/dense_100k.py`: 16 feeds, chunk 25, shift) and `bench.py`'s
    configuration (pick with the inbox kernel, check every 5, device
@@ -123,24 +169,24 @@ result line is printed:
    be launched once per tick of the pick run (G = 65,536 packets of
    m = 5, slots 8), whose last launch's inputs it keeps for the kernels
    line;
-18. `dense_100k_pick`, the north star on the bench's path:
+22. `dense_100k_pick`, the north star on the bench's path:
    `bench.measure` at n=100,000 (`bench_params`: 4 feeds of 6,250; pick
    with the inbox kernel, fingers, target 0.999, check every 5) must
    converge with FP 0 and coverage >= 0.999, with one kernel launch per
    timed tick (G = 200,000 packets of m = 5, slots 8). Prints the stable
    tick, wall s, ms per tick, the peak device memory and the launches,
    and keeps the inputs of the run's last launch for the kernels line;
-19. `dense_100k_shift`: `dense_100k.run` at n=100,000, chunk 25 (the
+23. `dense_100k_shift`: `dense_100k.run` at n=100,000, chunk 25 (the
    reference script's program) must converge with FP 0; prints ticks,
    init s, first-dispatch s, convergence wall s, ms per tick and the
    peak device memory;
-20. `ladder`: `scale_ladder.py`'s rungs 1, 2 and 3 (n=128 with 5 %
+24. `ladder`: `scale_ladder.py`'s rungs 1, 2 and 3 (n=128 with 5 %
    churn; n=1,000, fanout 3, suspicion 3/6/9 with one crash; n=10,000
    with 1 % churn) on the card: every tick count, detection, crash
    count, false positive and coverage must equal `LADDER_REF`, the JAX
    package's rungs through the same code on the CPU. Wall times are
    printed;
-21. `pview_churn_ref`: `pview_converge.run` (the program of
+25. `pview_churn_ref`: `pview_converge.run` (the program of
    `scripts/pview_converge.py`) at n=8,192, K=512, in shift and in pick
    with the inbox kernel: each run's boot tick, its six stats and 14
    event totals, the detection tick of its 81 crashes, the stats and
@@ -148,37 +194,37 @@ result line is printed:
    (the JAX package's program on the CPU), with one kernel launch per
    pick tick; the pick run's last launch's inputs are kept for the
    kernels line;
-22. `pview_smoke`: `bench_smoke.run()` (n=2,048, K=256, boot through the
+26. `pview_smoke`: `bench_smoke.run()` (n=2,048, K=256, boot through the
    device loop, 1 % churn) must equal `SMOKE_REF`;
-23. `pview_flight`: `chaos_soak.kernel_flight_phase(7)` and
+27. `pview_flight`: `chaos_soak.kernel_flight_phase(7)` and
    `flaky_node_phase((3, 11))`, each publishing into a recorder of its
    own while the global one holds every earlier pview frame, must equal
    `FLIGHT_REF`; `churn_sweep.run_config` at n=2,048, K=256 for
    "baseline" and "lifeguard" must equal `SWEEP_REF`;
-24. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+28. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-25. `pview_churn_100k`: `pview_converge.run(100_000, 2048)`, the
+29. `pview_churn_100k`: `pview_converge.run(100_000, 2048)`, the
    script's default rung at full width, must converge on the four-term
    bar and detect all 1,000 crashes with FP 0 within its caps; prints
    the ticks beside the banked `A-convergence-100000`'s (a TPU run of
    older code: ticks only), the detected share at every churn check,
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
-26. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+30. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 200 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at every check from tick 50, and
    14 event totals at tick 200) with FP 0 and full tables; prints init
    s, wall, ms per tick and the peak device memory beside the 8.6 GB
    table (the run to the bar, which does not converge within 2,000
    ticks, is the CLI's);
-27. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+31. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-28. `torch.profiler` must see exactly one device kernel, and no memset,
+32. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -222,8 +268,9 @@ from corrosion_tpu_torch import (
     pview_profile,
     scale_ladder,
 )
+from corrosion_tpu_torch import agent_checks
 from corrosion_tpu_torch import inbox_bench as ib
-from corrosion_tpu_torch import ingest_bench, native, store_checks
+from corrosion_tpu_torch import ingest_bench, native, store_checks, sync_bench
 from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
@@ -393,6 +440,35 @@ REPLICA_REF = {
     },
     "versions": {1: 816, 2: 804, 3: 806},
     "bytes": {1: 293147, 2: 284231, 3: 279917},
+}
+
+# The JAX package's agents on the CPU with the python engine (`python -m
+# tests.test_torch_agent --ref`). AGENT_REF: `agent_checks.cluster_run`
+# at `CHIP_CLUSTER` (6 agents, random.Random(4242), MemNetwork(seed=23)):
+# the digest of the disjoint ranges' rows (every agent's), the versions of
+# each writer, the rows and `held_total` of every agent. SYNC_REF:
+# `sync_bench.run_rung(100_000, False, 17)`, the cold node's rows, clock
+# rows, `held_total` and a digest of its rows. INGEST_LOCAL_REF: per
+# local-write rung of `ingest_bench.run_local`, the digest of the rows.
+AGENT_REF = {
+    "disjoint_digest": "3e9a80019a4f5c085d2cd2784e61a15015673b8326664653ab14aa3b0f687c9e",
+    "versions_per_writer": 55,
+    "rows_total": 6100,
+    "held_total": 330,
+}
+SYNC_REF = {
+    "rows_final": 100000,
+    "clock_rows_final": 200000,
+    "held_total": 50,
+    "rows_digest": "929338f3ef5f4acbfa46b8002820cb66f4c2bdeb3f9adb57bc8a99a60b7a1f50",
+}
+INGEST_LOCAL_REF = {
+    "ingest-local-w1": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+    "ingest-local-w4": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+    "ingest-local-w16": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+    "ingest-local-w1-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+    "ingest-local-w4-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+    "ingest-local-w16-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
 }
 
 # sha256 of the JAX package's bridge replies to `bridge_scale.wire_replies`
@@ -993,12 +1069,19 @@ def crdt_parity_cases() -> list:
 
 
 def phase_crdt_parity(dev) -> dict:
+    """Each case through the program as `merge_table_array` runs it on the
+    card (`crdt_merge.run_packed`: packed inputs, the shape's CUDA graph
+    replayed) against `_merge_kernel` op by op on the CPU: every output
+    equal."""
     names = []
     for name, arrays, ambiguous in crdt_parity_cases():
-        got, want = (crdt_merge._merge_kernel(**crdt_inputs_to_torch(
-            arrays, d)) for d in (dev, "cpu"))
+        got = crdt_merge.run_packed(
+            crdt_merge.pack_inputs(arrays), arrays["num_groups"],
+            arrays["num_cells"], dev)[0]
+        want = crdt_merge.read_decisions(crdt_merge._merge_kernel(
+            **crdt_inputs_to_torch(arrays, "cpu")))
         for i, (g, w) in enumerate(zip(got, want)):
-            if g.device.type != "cuda" or not torch.equal(g.cpu(), w):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
                 raise AssertionError(f"crdt decision program: output {i} "
                                      f"differs between the card and the "
                                      f"CPU on {name}")
@@ -1053,11 +1136,12 @@ def phase_crdt_slice(dev) -> dict:
         emit(out)
         sizes.append(size)
     prof = crdt_bench.profile_batch(dev, sizes[0])
-    if prof["dtoh_copies"] != 1 or prof["htod_copies"] != 13:
+    if prof["dtoh_copies"] != 1 or prof["htod_copies"] != 1:
         raise AssertionError(f"a profiled crdt batch made "
                              f"{prof['htod_copies']} host-to-device and "
                              f"{prof['dtoh_copies']} device-to-host copies, "
-                             f"not one per input and one readback")
+                             f"not one of the packed inputs and one "
+                             f"readback")
     return {"phase": "crdt_slice", "ok": True, "sizes": sizes,
             "profiled_batch": {k: prof[k] for k in (
                 "size", "device_ops", "htod_copies", "dtoh_copies")},
@@ -1147,6 +1231,26 @@ def phase_store_ingest(dev) -> dict:
             "array_batches": _lane_counts(lane)}
 
 
+def phase_store_ingest_threads(dev) -> dict:
+    """`ingest_bench.apply_concurrently`: both remote rungs under `array`
+    into three stores each at once, one thread per store, six threads
+    replaying the decision program's graphs together: every store ends at
+    its rung's `INGEST_REF` and decided batches on the card."""
+    t0 = time.monotonic()
+    recs = ingest_bench.apply_concurrently(dev, stores=3)
+    wall = time.monotonic() - t0
+    bad = [r for r in recs if r["digest"] != INGEST_REF[r["rung"]]
+           or r["lane"]["decided"] == 0]
+    if bad or len(recs) != 2 * 3:
+        raise AssertionError(f"threaded ingest: stores {bad} off INGEST_REF "
+                             f"or deciding nothing")
+    return {"phase": "store_ingest_threads", "ok": True,
+            "stores": len(recs), "wall_s": wall,
+            "array_batches": [sum(r["lane"][k] for r in recs)
+                              for k in ("decided", "declined")],
+            "replays": crdt_merge.replay_stats()}
+
+
 def phase_store_replicas(dev) -> dict:
     """Three port stores on the card with `array` write, exchange their
     versions through the changeset codec and converge: every replica's
@@ -1166,6 +1270,182 @@ def phase_store_replicas(dev) -> dict:
             "txs_per_replica": store_checks.REPLICA_TXS,
             "versions": got["versions"], "bytes": got["bytes"],
             "array_batches": _lane_counts(lane)}
+
+
+def phase_agent_cluster(dev) -> dict:
+    """Six port agents (stores on the card, `array`) on a random bootstrap
+    topology write their own ranges and then the same shared ids: every
+    agent's disjoint rows equal `AGENT_REF`, the shared ids are equal
+    across the six, every writer's versions are booked everywhere with
+    one `held_total`, the cluster holds six with no down-marking, and the
+    decision program decided batches."""
+    with crdt_bench.engine_env("array"), \
+            tempfile.TemporaryDirectory(prefix="agent_cluster") as tmp:
+        rec = asyncio.run(agent_checks.cluster_run(
+            agent_checks.port_api(dev), tmp, **agent_checks.CHIP_CLUSTER,
+            timeout=600.0))
+    bad = agent_checks.cluster_checks(rec)
+    got = {"disjoint_digest": rec["disjoint_digest"][0],
+           "versions_per_writer": rec["versions_per_writer"],
+           "rows_total": rec["rows_total"],
+           "held_total": rec["held_total"][0]}
+    if bad or got != AGENT_REF:
+        raise AssertionError(f"agent cluster: {bad}; {got} against "
+                             f"AGENT_REF {AGENT_REF}")
+    return {"phase": "agent_cluster", "ok": True, "agents": rec["agents"],
+            "rows_total": rec["rows_total"],
+            "wall_to_converged_s": rec["wall_s"],
+            "shared_winners": rec["shared_writers"],
+            "array_batches": _lane_counts(rec["array_lane"]),
+            **_replay_line(dev)}
+
+
+def _replay_line(dev) -> dict:
+    """This process's decision-program graphs (`crdt_merge.replay_stats`)
+    and the peak device memory it reserved."""
+    return {"replays": crdt_merge.replay_stats(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+
+
+def _sync_rung(dev, engine: str, fire: bool) -> dict:
+    with crdt_bench.engine_env(engine):
+        rec = sync_bench.run_rung(100_000, fire, sync_bench.SEEDS[fire],
+                                  device=dev, cap_s=600.0)
+        return asyncio.run(rec)
+
+
+def _sync_line(dev, rec: dict) -> dict:
+    return {k: rec[k] for k in ("engine", "wall_to_converged_s",
+                                "load_wall_s", "delta_changes_received",
+                                "changes_per_s", "rows_per_s",
+                                "changes_in_by_source", "resume_waves")} | {
+        "array_batches": _lane_counts(rec["array_lane"]),
+        **_replay_line(dev)}
+
+
+def _agent_sync_100k(dev, engine: str) -> dict:
+    """`sync_bench.run_rung(100_000)` under `engine`: a cold node catches
+    up the origin's 100,000 rows by delta sync; it meets the script's bar
+    and ends at `SYNC_REF`, and under `array` every remote batch was
+    decided on the card."""
+    rec = _sync_rung(dev, engine, False)
+    got = {k: rec[k] for k in SYNC_REF}
+    lane = rec["array_lane"]
+    if (got != SYNC_REF or rec["held_total"] != rec["origin_held_total"]
+            or (lane["decided"] == 0) != (engine != "array")):
+        raise AssertionError(f"agent sync 100k, {engine}: {got} against "
+                             f"SYNC_REF {SYNC_REF}; held "
+                             f"{rec['origin_held_total']}; lane {lane}")
+    return {"phase": f"agent_sync_100k_{engine}", "ok": True,
+            "rows": 100_000, **_sync_line(dev, rec)}
+
+
+def phase_agent_sync_100k_array(dev) -> dict:
+    return _agent_sync_100k(dev, "array")
+
+
+def phase_agent_sync_100k_python(dev) -> dict:
+    return _agent_sync_100k(dev, "python")
+
+
+def phase_agent_sync_100k_fire(dev) -> dict:
+    """The same rung under `array` with the concurrent writer: after it
+    stops, the exact bar closes (rows, `held_total`, clock rows)."""
+    rec = _sync_rung(dev, "array", True)
+    rows = 100_000 + rec["fire_rows_written"]
+    lane = rec["array_lane"]
+    if (rec["rows_final"] != rows or rec["clock_rows_final"] != 2 * rows
+            or rec["held_total"] != rec["origin_held_total"]
+            or lane["decided"] == 0):
+        raise AssertionError(f"agent sync 100k fire: {rec}")
+    return {"phase": "agent_sync_100k_fire", "ok": True, "rows": rows,
+            "fire_rows_written": rec["fire_rows_written"],
+            **_sync_line(dev, rec)}
+
+
+def phase_agent_local_writes(dev) -> dict:
+    """The six local-write rungs of `bench_ingest.py` through one port
+    agent's public write path (a local commit runs no merge engine):
+    each rung's rows equal `INGEST_LOCAL_REF`."""
+    with crdt_bench.engine_env("array"):
+        recs = ingest_bench.run_local(device=dev)
+    bad = [r["rung"] for r in recs
+           if r["digest"] != INGEST_LOCAL_REF[r["rung"]]]
+    if bad or len(recs) != len(INGEST_LOCAL_REF):
+        raise AssertionError(f"local-write rungs {bad} off INGEST_LOCAL_REF")
+    return {"phase": "agent_local_writes", "ok": True,
+            "rungs": {r["rung"]: {k: r[k] for k in (
+                "rows", "rows_per_s", "commit_p50_ms", "commit_p99_ms")}
+                for r in recs}}
+
+
+# The agent phases and the threaded store check, each in a process of
+# its own, side by side: each is host-bound under its own interpreter
+# lock (an agent's loops and apply threads), and the card serves their
+# few-ms decision programs in turn. The cluster is the longest, so the
+# others add no wall. The two engines' runs of `agent_sync_100k` are
+# two of them, printed as one line.
+CHILD_PHASES = ("agent_cluster", "agent_sync_100k_array",
+                "agent_sync_100k_python", "agent_sync_100k_fire",
+                "agent_local_writes", "store_ingest_threads")
+CHILD_PHASE_TIMEOUT_S = 900
+
+
+def phase_children() -> list:
+    """Every entry of `CHILD_PHASES` in a child process of this script at
+    once; their lines, each with the wall of its process. A child that
+    fails fails the run with its output."""
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="agent_phases") as tmp:
+        try:
+            for name in CHILD_PHASES:
+                out = open(Path(tmp) / f"{name}.out", "w+")
+                err = open(Path(tmp) / f"{name}.err", "w+")
+                procs.append((name, out, err, time.monotonic(),
+                              subprocess.Popen(
+                                  [sys.executable, str(Path(__file__).resolve()),
+                                   "--child-phase", name],
+                                  stdout=out, stderr=err, text=True)))
+            ends = {}
+            deadline = time.monotonic() + CHILD_PHASE_TIMEOUT_S
+            failed = False
+            while (len(ends) < len(procs) and not failed
+                   and time.monotonic() < deadline):
+                for name, _out, _err, _t0, p in procs:
+                    if name not in ends and p.poll() is not None:
+                        ends[name] = time.monotonic()
+                        failed |= p.returncode != 0
+                time.sleep(0.2)
+            lines = {}
+            # a failed child first, then one cut by the timeout
+            for name, out, err, t0, p in sorted(
+                    procs, key=lambda x: x[4].poll() in (0, None)):
+                rc = p.poll()
+                out.seek(0)
+                err.seek(0)
+                text = out.read().strip()
+                if rc != 0 or not text:
+                    tail = "\n".join(err.read().splitlines()[-30:])
+                    raise AssertionError(f"child phase {name}: rc {rc}\n"
+                                         f"{text}\n{tail}")
+                line = json.loads(text.splitlines()[-1])
+                line["process_wall_s"] = ends[name] - t0
+                lines[name] = line
+        finally:
+            for _name, out, err, _t0, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+                err.close()
+    sync = [lines.pop(f"agent_sync_100k_{e}") for e in ("array", "python")]
+    for line in sync:
+        del line["phase"], line["ok"], line["rows"]
+    lines["agent_sync_100k"] = {"phase": "agent_sync_100k", "ok": True,
+                                "rows": 100_000, "engines": sync}
+    return [lines[name] for name in (
+        "store_ingest_threads", "agent_cluster", "agent_sync_100k",
+        "agent_sync_100k_fire", "agent_local_writes")]
 
 
 def phase_bridge_wire(dev) -> dict:
@@ -1631,6 +1911,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
+    if sys.argv[1:2] == ["--child-phase"]:
+        if sys.argv[2] not in CHILD_PHASES:
+            raise SystemExit(f"unknown child phase {sys.argv[2]!r}")
+        emit(globals()[f"phase_{sys.argv[2]}"](dev))
+        return 0
     emit(phase_build())
     inbox = phase_inbox_kernel(dev)
     emit(inbox)
@@ -1649,6 +1934,8 @@ def main() -> int:
     emit(phase_store_flood(dev))
     emit(phase_store_ingest(dev))
     emit(phase_store_replicas(dev))
+    for line in phase_children():
+        emit(line)
     emit(phase_bridge_wire(dev))
     emit(phase_bridge_silent(dev))
     emit(phase_bridge_scale(dev))

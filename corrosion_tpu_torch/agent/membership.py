@@ -15,9 +15,10 @@ digest-free packets.
 Config scaling follows foca's `new_wan`: probe cadence and suspicion
 windows grow with log(cluster size); packets stay under 1178 B.
 
-Not ported: `leave` (a graceful departure; a received LEAVE is still
-applied), the agent's `rejoin` / `change_cluster_id` (admin commands)
-and `apply_many` (restart resurrection from the store).
+The agent (`agent/run.py`) also uses `leave` (a graceful departure at
+shutdown), `apply_many` (restart resurrection of the persisted members,
+`agent/member_store.py`), `active_members`, and the admin commands
+`rejoin` and `change_cluster_id`.
 
 `random` and `time` here are the standard library's (see `net/mem.py`
 on running the package with `-m`).
@@ -32,7 +33,7 @@ import random
 import time
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from corrosion_tpu_torch.net.gossip_codec import (
     MAX_PACKET,
@@ -203,6 +204,11 @@ class Membership:
     # -- public surface ----------------------------------------------------
 
     @property
+    def lhm(self) -> int:
+        """Current Local Health Multiplier score (0 = healthy)."""
+        return self._lhm
+
+    @property
     def lhm_multiplier(self) -> float:
         """Effective timer multiplier: 1 + score (1.0 with lifeguard
         off — every wait below multiplies by this unconditionally)."""
@@ -232,6 +238,13 @@ class Membership:
         # absorption and an O(N) sum here made absorption quadratic
         return 1 + len(self.members)
 
+    def active_members(self) -> List[Actor]:
+        return [
+            m.actor
+            for m in self.members.values()
+            if m.state != MemberState.DOWN
+        ]
+
     def start(self, tripwire: Tripwire) -> None:
         self._tasks = [
             asyncio.ensure_future(self._probe_loop(tripwire)),
@@ -244,6 +257,48 @@ class Membership:
             t.cancel()
             with contextlib.suppress(asyncio.CancelledError):
                 await t
+
+    async def leave(self) -> None:
+        """Graceful departure: tell peers we're down at our own incarnation
+        (broadcast/mod.rs:327-366 leave_cluster)."""
+        update = MemberUpdate(
+            self.identity, self._incarnation, MemberState.DOWN
+        )
+        targets = self.active_members()
+        self.rng.shuffle(targets)
+        for actor in targets[: max(3, self.config.num_indirect_probes)]:
+            msg = SwimMessage(
+                MsgKind.LEAVE, 0, self.identity, updates=[update]
+            )
+            await self._send(actor.addr, msg)
+
+    def apply_many(self, states: List[Tuple[Actor, int, MemberState]]) -> None:
+        """Resurrect persisted member states on startup (util.rs:74-111)."""
+        for actor, incarnation, state in states:
+            self._apply_update(MemberUpdate(actor, incarnation, state))
+
+    async def rejoin(self) -> Actor:
+        """Operator-triggered full rejoin (admin Cluster Rejoin →
+        FocaCmd::Rejoin, `klukai/src/admin.rs`): renew identity and
+        re-announce to every active member."""
+        self.identity = self.identity.renew()
+        self._incarnation = 0
+        self._disseminate(MemberUpdate(self.identity, 0, MemberState.ALIVE))
+        for actor in self.active_members():
+            await self.announce(actor.addr)
+        return self.identity
+
+    async def change_cluster_id(self, cluster_id) -> Actor:
+        """Admin Cluster SetId → ChangeIdentity: same node id, new cluster.
+        Peers in the old cluster will drop our datagrams from now on."""
+        from dataclasses import replace
+
+        self.identity = replace(
+            self.identity.renew(), cluster_id=cluster_id
+        )
+        self._incarnation = 0
+        self._disseminate(MemberUpdate(self.identity, 0, MemberState.ALIVE))
+        return self.identity
 
     async def announce(self, addr: str) -> None:
         """Join via a bootstrap address (handlers.rs:197-248)."""

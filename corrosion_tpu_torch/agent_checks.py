@@ -1,0 +1,465 @@
+"""Agent workloads that hold the port's agent to the JAX package's.
+
+Each one is written over a small `api` namespace (`setup`, `run`,
+`shutdown`, `make_broadcastable_changes`, `parallel_sync`, `MemNetwork`,
+`Config`, `SwimConfig`, `held_total`, `METRICS`), so the same code boots either
+package's agents: `chip_smoke.py` and `sync_bench.py` run the port's with
+their stores' decision program on the card, and the tests run the JAX
+package's beside them on the CPU with the same seeds.
+
+The configuration is the one of the JAX package's agent tests
+(`tests/test_agent.py::fast_config`: 20 ms broadcasts, 5 ms apply
+window, sync every 0.1-0.5 s, fast SWIM timers) with the planes the port
+does not have yet turned off for both packages (`PLANES_OFF`): a port
+`setup` refuses them, and the same TOML must mean the same thing in both.
+
+The scenarios are the JAX package's agent tests (`tests/test_agent.py`):
+insert-and-gossip, an LWW conflict, a late joiner caught up by sync, one
+`parallel_sync` round trip, a transaction large enough for several
+broadcast chunks, a shed queue repaired by sync, and the stress shape of
+six agents on a random bootstrap topology (`cluster_run`). Each returns
+what it saw as plain data; timing differs from run to run in both
+packages, so what is held equal is the converged part: the rows every
+agent ends with where only one writer wrote, and equality across agents
+where several did.
+
+Every wait is capped, and every agent is shut down on every exit path.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import hashlib
+import os
+import random
+import time
+from types import SimpleNamespace
+from typing import Callable, List, Optional
+
+TEST_SCHEMA = (
+    "CREATE TABLE tests (id INTEGER NOT NULL PRIMARY KEY, text TEXT);"
+)
+FAST_SWIM = dict(probe_period=0.05, probe_rtt=0.02, suspicion_mult=1.0)
+# (section, flag): planes the port's `setup` refuses (`agent/run.py`
+# `UNPORTED_PLANES`), turned off for both packages
+PLANES_OFF = (
+    ("trace", "enabled"), ("tsdb", "enabled"), ("alerts", "enabled"),
+    ("profile", "enabled"), ("cluster", "digests"), ("sync", "snapshot"),
+    ("slo", "canary"),
+)
+
+
+def port_api(device=None) -> SimpleNamespace:
+    """The port's agent, its stores' decision program on `device` (None:
+    the card)."""
+    from corrosion_tpu_torch.agent import run as run_mod
+    from corrosion_tpu_torch.agent.membership import SwimConfig
+    from corrosion_tpu_torch.agent.syncer import parallel_sync
+    from corrosion_tpu_torch.net.mem import MemNetwork
+    from corrosion_tpu_torch.runtime.config import Config
+    from corrosion_tpu_torch.runtime.metrics import METRICS
+    from corrosion_tpu_torch.sync import held_total
+
+    async def setup(config, network=None, tripwire=None):
+        return await run_mod.setup(config, network=network,
+                                   tripwire=tripwire, device=device)
+
+    return SimpleNamespace(
+        name="port", setup=setup, run=run_mod.run,
+        shutdown=run_mod.shutdown,
+        make_broadcastable_changes=run_mod.make_broadcastable_changes,
+        parallel_sync=parallel_sync, MemNetwork=MemNetwork, Config=Config,
+        SwimConfig=SwimConfig, held_total=held_total, METRICS=METRICS,
+    )
+
+
+def fast_config(api, addr: str, db_dir: str, bootstrap=()):
+    cfg = api.Config()
+    cfg.db.path = os.path.join(db_dir, addr.replace(":", "_") + ".db")
+    cfg.gossip.bind_addr = addr
+    cfg.gossip.bootstrap = list(bootstrap)
+    cfg.perf.broadcast_interval_ms = 20
+    cfg.perf.apply_queue_timeout_ms = 5
+    cfg.perf.sync_interval_min_secs = 0.1
+    cfg.perf.sync_interval_max_secs = 0.5
+    for section, flag in PLANES_OFF:
+        setattr(getattr(cfg, section), flag, False)
+    return cfg
+
+
+async def boot(api, net, addr: str, db_dir: str, bootstrap=(),
+               tune: Optional[Callable] = None, swim=None,
+               before_run: Optional[Callable] = None):
+    """setup + schema + run, as the JAX package's tests boot an agent;
+    `before_run(agent)`, if given, runs just before `run`."""
+    cfg = fast_config(api, addr, db_dir, bootstrap)
+    if tune is not None:
+        tune(cfg)
+    agent = await api.setup(cfg, network=net)
+    try:
+        agent.membership.config = swim or api.SwimConfig(**FAST_SWIM)
+        agent.store.apply_schema_sql(TEST_SCHEMA)
+        if before_run is not None:
+            before_run(agent)
+        await api.run(agent)
+    except BaseException:
+        await api.shutdown(agent)
+        raise
+    return agent
+
+
+async def shutdown_all(api, agents) -> None:
+    for ag in agents:
+        if ag is not None:
+            await api.shutdown(ag)
+
+
+async def wait_until(pred, timeout: float = 10.0, step: float = 0.02) -> bool:
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
+    while loop.time() < deadline:
+        if pred():
+            return True
+        await asyncio.sleep(step)
+    return pred()
+
+
+def query(agent, sql: str, args=()) -> list:
+    conn = agent.store.read_conn()
+    try:
+        return [tuple(r) for r in conn.execute(sql, args).fetchall()]
+    finally:
+        conn.close()
+
+
+def count_rows(agent, where: str = "1=1") -> int:
+    return query(agent, f"SELECT COUNT(*) FROM tests WHERE {where}")[0][0]
+
+
+def clock_count(agent) -> int:
+    return query(agent, "SELECT COUNT(*) FROM tests__crdt_clock")[0][0]
+
+
+def rows(agent, lo: int = 0, hi: int = 1 << 62) -> list:
+    return query(agent, "SELECT id, text FROM tests WHERE id >= ? AND id < ?"
+                 " ORDER BY id", (lo, hi))
+
+
+def digest(obj) -> str:
+    return hashlib.sha256(repr(obj).encode()).hexdigest()
+
+
+def booked_contains(agent, other_id, lo: int, hi: int) -> bool:
+    """Whether `agent` booked versions lo..hi of `other_id` (an actor id
+    of either package: looked up by its bytes)."""
+    booked = next((b for aid, b in agent.bookie.items().items()
+                   if aid.bytes16 == other_id.bytes16), None)
+    if booked is None:
+        return False
+    with booked.read() as bv:
+        return bv.contains_all((lo, hi))
+
+
+def array_lane(agents) -> dict:
+    """Batches the port's stores decided and declined on their decision
+    program (`CrdtStore.array_lane`); None for the JAX package's."""
+    lanes = [getattr(ag.store, "array_lane", None) for ag in agents]
+    if any(lane is None for lane in lanes):
+        return None
+    return {k: sum(lane[k] for lane in lanes)
+            for k in ("decided", "declined")}
+
+
+async def insert(api, agent, rowid: int, text: str):
+    return await api.make_broadcastable_changes(
+        agent,
+        lambda tx: [tx.execute(
+            "INSERT OR REPLACE INTO tests (id, text) VALUES (?, ?)",
+            (rowid, text))],
+    )
+
+
+async def insert_many(api, agent, items) -> object:
+    """One transaction writing every (id, text) of `items`."""
+    items = list(items)
+    return await api.make_broadcastable_changes(
+        agent,
+        lambda tx: [tx.execute(
+            "INSERT OR REPLACE INTO tests (id, text) VALUES (?, ?)", it)
+            for it in items],
+    )
+
+
+async def _sizes(agents, n: int, timeout: float) -> None:
+    if not await wait_until(
+            lambda: all(ag.membership.cluster_size == n for ag in agents),
+            timeout=timeout):
+        raise AssertionError(
+            f"cluster sizes {[ag.membership.cluster_size for ag in agents]}"
+            f", expected {n}")
+
+
+# -- the JAX package's agent tests, as scenarios ------------------------------
+
+
+async def scenario_gossip(api, db_dir: str) -> dict:
+    """`test_insert_rows_and_gossip`: three agents; a write on a and one
+    on b reach everyone by broadcast."""
+    net = api.MemNetwork(seed=11)
+    agents = []
+    try:
+        agents.append(await boot(api, net, "agent-a", db_dir))
+        for name in ("agent-b", "agent-c"):
+            agents.append(await boot(api, net, name, db_dir, ["agent-a"]))
+        a, b, c = agents
+        await _sizes(agents, 3, 10.0)
+        res = await insert(api, a, 1, "hello")
+        ok1 = await wait_until(lambda: count_rows(b) == 1
+                               and count_rows(c) == 1)
+        await insert(api, b, 2, "world")
+        ok2 = await wait_until(lambda: count_rows(a) == 2
+                               and count_rows(c) == 2)
+        return {"version": res.version, "rows_affected": res.rows_affected,
+                "replicated": [ok1, ok2],
+                "booked": [booked_contains(ag, a.actor_id, 1, 1)
+                           for ag in (b, c)],
+                "rows": [rows(ag) for ag in agents]}
+    finally:
+        await shutdown_all(api, agents)
+
+
+async def scenario_lww(api, db_dir: str) -> dict:
+    """`test_lww_convergence_on_conflict`: concurrent writes to one row
+    end with one value on both agents (which one depends on timing)."""
+    net = api.MemNetwork(seed=13)
+    agents = []
+    try:
+        agents.append(await boot(api, net, "agent-a", db_dir))
+        agents.append(await boot(api, net, "agent-b", db_dir, ["agent-a"]))
+        a, b = agents
+        await _sizes(agents, 2, 10.0)
+        await asyncio.gather(insert(api, a, 7, "from-a"),
+                             insert(api, b, 7, "from-b"))
+
+        def values():
+            return [rows(ag, 7, 8) for ag in agents]
+
+        ok = await wait_until(lambda: values()[0] != [] and
+                              values()[0] == values()[1])
+        return {"converged": ok, "value": values()[0]}
+    finally:
+        await shutdown_all(api, agents)
+
+
+async def scenario_late_joiner(api, db_dir: str) -> dict:
+    """`test_late_joiner_catches_up_via_sync`: 20 rows written before c
+    boots reach c by sync alone."""
+    net = api.MemNetwork(seed=17)
+    agents = []
+    try:
+        a = await boot(api, net, "agent-a", db_dir)
+        agents.append(a)
+        for i in range(20):
+            await insert(api, a, i, f"row-{i}")
+        c = await boot(api, net, "agent-c", db_dir, ["agent-a"])
+        agents.append(c)
+        await _sizes([c], 2, 10.0)
+        ok = await wait_until(lambda: count_rows(c) == 20, timeout=15.0)
+        booked = c.bookie.get(a.actor_id)
+        with booked.read() as bv:
+            last = bv.last()
+        return {"caught_up": ok, "booked": booked_contains(c, a.actor_id,
+                                                           1, 20),
+                "last": last, "rows": rows(c)}
+    finally:
+        await shutdown_all(api, agents)
+
+
+async def scenario_parallel_sync(api, db_dir: str) -> dict:
+    """`test_direct_parallel_sync_roundtrip`: one sync session driven
+    directly, no scheduler."""
+    net = api.MemNetwork(seed=19)
+    agents = []
+    try:
+        agents.append(await boot(api, net, "agent-a", db_dir))
+        agents.append(await boot(api, net, "agent-b", db_dir))
+        a, b = agents
+        for i in range(5):
+            await insert(api, a, i, f"v-{i}")
+        b.members.add_member(a.actor)
+        received = await asyncio.wait_for(api.parallel_sync(b, [a.actor]),
+                                          30.0)
+        ok = await wait_until(lambda: count_rows(b) == 5)
+        return {"received": received, "applied": ok, "rows": rows(b)}
+    finally:
+        await shutdown_all(api, agents)
+
+
+async def scenario_large_tx(api, db_dir: str) -> dict:
+    """`test_large_tx_multichunk_broadcast_replicates`: one transaction
+    of 80 rows of 400 bytes, split into several broadcast chunks, lands
+    whole."""
+    net = api.MemNetwork(seed=31)
+    agents = []
+    try:
+        agents.append(await boot(api, net, "big-a", db_dir))
+        agents.append(await boot(api, net, "big-b", db_dir, ["big-a"]))
+        a, b = agents
+        await _sizes(agents, 2, 15.0)
+        big = "x" * 400
+        await insert_many(api, a, [(k, big) for k in range(80)])
+        ok = await wait_until(lambda: count_rows(b) == 80, timeout=30.0)
+        return {"replicated": ok, "rows": digest(rows(b))}
+    finally:
+        await shutdown_all(api, agents)
+
+
+async def scenario_loadshed(api, db_dir: str, counter) -> dict:
+    """`test_loadshed_drop_oldest_then_sync_repairs`: b's processing
+    queue holds 2, so a 40-write flood sheds (`counter()` reads the
+    package's `corro.agent.changes.dropped`), and sync repairs b to the
+    full row set."""
+    net = api.MemNetwork(seed=29)
+    agents = []
+
+    def tune(cfg):
+        cfg.perf.processing_queue_len = 2
+        cfg.perf.apply_queue_len = 10_000
+        cfg.perf.apply_queue_timeout_ms = 200
+
+    try:
+        agents.append(await boot(api, net, "shed-a", db_dir))
+        agents.append(await boot(api, net, "shed-b", db_dir, ["shed-a"],
+                                 tune=tune))
+        a, b = agents
+        await _sizes(agents, 2, 10.0)
+        dropped0 = counter()
+        for i in range(40):
+            await insert(api, a, i, f"flood-{i}")
+        shed = await wait_until(lambda: counter() > dropped0, timeout=10.0)
+        ok = await wait_until(lambda: count_rows(b) == 40, timeout=30.0)
+        return {"shed": shed, "repaired": ok,
+                "booked": booked_contains(b, a.actor_id, 1, 40),
+                "rows": rows(b)}
+    finally:
+        await shutdown_all(api, agents)
+
+
+# -- the stress shape: n agents, random bootstrap topology --------------------
+
+
+def own_rows(ai: int, txs: int, rows_per_tx: int) -> list:
+    """Agent `ai`'s disjoint range: ids ai * 10^6 + k."""
+    base = ai * 1_000_000
+    return [(base + k, f"w{ai}-r{k}") for k in range(txs * rows_per_tx)]
+
+
+SHARED_BASE = 900_000_000
+# `chip_smoke.py`'s agent_cluster: six agents, 50 transactions of 20 rows
+# each, then 100 shared ids written by all six
+CHIP_CLUSTER = dict(n_agents=6, txs=50, rows_per_tx=20, shared=100)
+
+
+async def cluster_run(api, db_dir: str, n_agents: int = 6, txs: int = 5,
+                      rows_per_tx: int = 4, shared: int = 10,
+                      seed: int = 4242, net_seed: int = 23,
+                      timeout: float = 60.0) -> dict:
+    """`test_configurable_stress_random_topology_concurrent_writers`,
+    widened: `n_agents` agents bootstrap through 1-2 random earlier ones
+    (`random.Random(seed)`, `MemNetwork(seed=net_seed)`); every agent
+    concurrently writes `txs` transactions of `rows_per_tx` rows into its
+    own id range, then every agent writes the same `shared` ids with
+    values of its own (in transactions of `rows_per_tx` rows). The run
+    ends when every agent holds every row and every writer's versions
+    are booked by every peer.
+
+    Returns the disjoint ranges' rows (equal to `own_rows` on every
+    agent), the shared ids' rows (equal across agents; the winners
+    depend on timing), the cluster sizes, `held_total` per agent, the
+    wall to convergence and the port's array lane."""
+    rng = random.Random(seed)
+    net = api.MemNetwork(seed=net_seed)
+    names = [f"stress-{i}" for i in range(n_agents)]
+    agents = []
+    try:
+        agents.append(await boot(api, net, names[0], db_dir))
+        for i in range(1, n_agents):
+            boots = rng.sample(names[:i], k=min(i, rng.choice((1, 2))))
+            agents.append(await boot(api, net, names[i], db_dir, boots))
+        await _sizes(agents, n_agents, 20.0)
+        t0 = time.monotonic()
+
+        async def writer(ai, ag):
+            mine = own_rows(ai, txs, rows_per_tx)
+            for t in range(txs):
+                await insert_many(
+                    api, ag, mine[t * rows_per_tx:(t + 1) * rows_per_tx])
+
+        await asyncio.gather(*(writer(ai, ag)
+                               for ai, ag in enumerate(agents)))
+
+        async def shared_writer(ai, ag):
+            ids = [(SHARED_BASE + k, f"s{ai}-{k}") for k in range(shared)]
+            for t in range(0, shared, rows_per_tx):
+                await insert_many(api, ag, ids[t:t + rows_per_tx])
+
+        await asyncio.gather(*(shared_writer(ai, ag)
+                               for ai, ag in enumerate(agents)))
+        versions = txs + -(-shared // rows_per_tx)
+        total = n_agents * txs * rows_per_tx + shared
+
+        def converged() -> bool:
+            # cheapest first: the bookies' locks are taken (on the event
+            # loop) only once every row is there
+            if not all(count_rows(ag) == total for ag in agents):
+                return False
+            shared_rows = [rows(ag, SHARED_BASE) for ag in agents]
+            if any(r != shared_rows[0] for r in shared_rows):
+                return False
+            return all(booked_contains(ag, other.actor_id, 1, versions)
+                       for ag in agents for other in agents
+                       if other is not ag)
+
+        ok = await wait_until(converged, timeout=timeout, step=0.1)
+        wall = time.monotonic() - t0
+        if not ok:
+            raise AssertionError(
+                f"{api.name} cluster did not converge in {timeout} s: rows "
+                f"{[count_rows(ag) for ag in agents]} of {total}")
+        disjoint = [rows(ag, 0, SHARED_BASE) for ag in agents]
+        shared_rows = [rows(ag, SHARED_BASE) for ag in agents]
+        return {
+            "agents": n_agents, "rows_total": total,
+            "versions_per_writer": versions,
+            "disjoint_digest": [digest(r) for r in disjoint],
+            "disjoint_expected": digest(sorted(
+                r for ai in range(n_agents)
+                for r in own_rows(ai, txs, rows_per_tx))),
+            "shared_digest": [digest(r) for r in shared_rows],
+            "shared_writers": sorted({t.split("-")[0]
+                                      for _i, t in shared_rows[0]}),
+            "cluster_size": [ag.membership.cluster_size for ag in agents],
+            "held_total": [api.held_total(ag.bookie) for ag in agents],
+            "wall_s": wall,
+            "array_lane": array_lane(agents),
+        }
+    finally:
+        await shutdown_all(api, agents)
+
+
+def cluster_checks(rec: dict) -> List[str]:
+    """What must hold of a `cluster_run` record in either package."""
+    bad = []
+    n = rec["agents"]
+    if set(rec["disjoint_digest"]) != {rec["disjoint_expected"]}:
+        bad.append("disjoint ranges differ from the rows written")
+    if len(set(rec["shared_digest"])) != 1:
+        bad.append("shared ids differ across agents")
+    if rec["cluster_size"] != [n] * n:
+        bad.append(f"cluster sizes {rec['cluster_size']}")
+    if len(set(rec["held_total"])) != 1:
+        bad.append(f"held_total {rec['held_total']}")
+    lane = rec["array_lane"]
+    if lane is not None and lane["decided"] == 0:
+        bad.append(f"array lane {lane}")
+    return bad

@@ -51,8 +51,6 @@ import time
 import numpy as np
 import torch
 
-from corrosion_tpu_torch.convert import crdt_inputs_to_torch
-from corrosion_tpu_torch.inbox_bench import median_ms
 from corrosion_tpu_torch.ops import crdt_merge
 from corrosion_tpu_torch.ops.crdt_merge import _pad, value_digest
 from corrosion_tpu_torch.profile_tick import _device_us
@@ -262,19 +260,33 @@ def scale_inputs(rows: int, seed: int) -> dict:
 
 
 def scale_point_ms(device, rows: int = SCALE_ROWS, seed: int = 0) -> float:
-    """Median device ms (CUDA events, 5 calls after a warm one) of the
-    decision program alone on `scale_inputs(rows, seed)`."""
-    inputs = crdt_inputs_to_torch(scale_inputs(rows, seed), device)
-    return median_ms(lambda: crdt_merge._merge_kernel(**inputs), reps=5)
+    """Median device ms (CUDA events around the graph replay, 5 calls
+    after a warm one that captures it) of the decision program alone on
+    `scale_inputs(rows, seed)`, run as `merge_table_array` runs it
+    (`crdt_merge.run_packed`)."""
+    arrays = scale_inputs(rows, seed)
+    packed = crdt_merge.pack_inputs(arrays)
+
+    def device_ms() -> float:
+        return crdt_merge.run_packed(packed, arrays["num_groups"],
+                                     arrays["num_cells"], device,
+                                     timed=True)[1]
+
+    device_ms()
+    return float(np.median([device_ms() for _ in range(5)]))
 
 
 def profile_batch(device, size: int = SIZES[-1], top: int = 12) -> dict:
     """The first batch of `size` on a fresh state under `torch.profiler`,
-    after its warm batch: device busy ms, device ops (kernels, copies,
-    memsets) per batch, the host-to-device and device-to-host copies, and
-    the top aten ops by device time and by count."""
+    after its warm batch and after the same batch once unprofiled: device
+    busy ms, device ops (kernels, copies, memsets) per batch, the
+    host-to-device and device-to-host copies, and the top aten ops by
+    device time and by count."""
     warm, batches = rung_batches(size)
     decide(warm, {}, device)
+    # the same batch once on a throwaway state: its shape's program graph
+    # is captured before the profiler starts
+    decide(batches[0], {}, device)
     torch.cuda.synchronize(device)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

@@ -31,21 +31,32 @@ Every output equals the reference's bit for bit, padding included
   earliest maximal element wins a tie, as in the reference's combine, and
   the payload bits carried with the max are that element's.
 
-The program makes no host sync. `merge_table_array` copies each input
-to the device once and reads all ten outputs back in one copy
-(`read_decisions`, which counts its calls in `read_decisions.readbacks`).
+The program makes no host sync. `merge_table_array` packs the thirteen
+inputs into one int32 [13, rows] array, copies it to the device once,
+and reads all ten outputs back in one copy (counted, as `read_decisions`
+counts its calls, in `read_decisions.readbacks`). On the card the
+program is captured once per padded shape (rows, groups, cells) as a
+CUDA graph and replayed (`_Replay`): a batch is one input copy, one
+graph launch and one readback, where the ops one by one are ~800
+launches. Each launch gives up the interpreter lock, and while other
+threads run Python (the agent's event loop, other stores' applies) a
+thread that gives it up waits up to a switch interval (5 ms) to get it
+back, so an eager batch among busy threads took seconds (PERF.md §5,
+the agent). On the CPU the same packed program runs eagerly.
 """
 
 from __future__ import annotations
 
 import struct
+import threading
 import time
+from collections import OrderedDict
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from corrosion_tpu_torch.convert import crdt_inputs_to_torch
+from corrosion_tpu_torch.convert import _CRDT_BOOL, CRDT_INPUTS
 from corrosion_tpu_torch.runtime.device import resolve_device
 from corrosion_tpu_torch.runtime.metrics import (
     CRDT_MERGE_EVENTS,
@@ -341,17 +352,28 @@ def read_decisions(out) -> tuple:
     device-to-host copy: one int32 buffer, split on the host."""
     parts = [o.reshape(-1).to(torch.int32) for o in out]
     flat = torch.cat(parts).cpu().numpy()
-    read_decisions.readbacks += 1
-    res, at = [], 0
-    for i, p in enumerate(parts):
-        a = flat[at:at + p.numel()]
-        at += p.numel()
-        res.append(a.astype(bool) if i in _BOOL_OUT else a)
-    res[8] = res[8].reshape(())
-    return tuple(res)
+    _count_readback()
+    return _split(flat, [p.numel() for p in parts])
 
 
 read_decisions.readbacks = 0
+_READBACKS_LOCK = threading.Lock()
+
+
+def _count_readback() -> None:
+    with _READBACKS_LOCK:  # stores apply from worker threads at once
+        read_decisions.readbacks += 1
+
+
+def _split(flat: np.ndarray, sizes) -> list:
+    """The ten outputs from their flattened int32 readback."""
+    res, at = [], 0
+    for i, k in enumerate(sizes):
+        a = flat[at:at + k]
+        at += k
+        res.append(a.astype(bool) if i in _BOOL_OUT else a)
+    res[8] = res[8].reshape(())
+    return tuple(res)
 
 
 # ---------------------------------------------------------------------------
@@ -512,27 +534,169 @@ def merge_table_array(
     batch = marshal(chs, st)
     if batch is None:
         return None
-    t1 = time.perf_counter()
-    inputs = crdt_inputs_to_torch(batch.arrays, dev)
+    return _decide_and_rebuild(batch, chs, st, rcl, clr, ckf, clf, rdel,
+                               rens, dev, record, t0)
+
+
+def pack_inputs(arrays) -> np.ndarray:
+    """The program's thirteen inputs (`convert.CRDT_INPUTS` order, all of
+    one length) as one C-contiguous int32 [13, rows] array."""
+    n = len(arrays["grp"])
+    packed = np.empty((len(CRDT_INPUTS), n), dtype=np.int32)
+    for i, name in enumerate(CRDT_INPUTS):
+        a = arrays[name]
+        if a.shape != (n,):
+            raise ValueError(f"crdt input {name}: need [{n}], got {a.shape}")
+        packed[i] = a
+    return packed
+
+
+def _program(buf: torch.Tensor, num_groups: int,
+             num_cells: int) -> torch.Tensor:
+    """`_merge_kernel` on packed inputs; its ten outputs flattened into one
+    int32 vector (`_out_sizes` order)."""
+    kw = {name: (buf[i] != 0) if name in _CRDT_BOOL else buf[i]
+          for i, name in enumerate(CRDT_INPUTS)}
+    out = _merge_kernel(**kw, num_groups=num_groups, num_cells=num_cells)
+    return torch.cat([o.reshape(-1).to(torch.int32) for o in out])
+
+
+def _out_sizes(n: int, num_groups: int, num_cells: int) -> tuple:
+    return (n, n) + (num_groups,) * 4 + (num_cells, num_cells, 1, 4)
+
+
+class _Replay:
+    """The decision program captured as a CUDA graph for one padded shape
+    on one card: a static input buffer, the graph, its static output.
+    One batch at a time uses it (`lock`)."""
+
+    def __init__(self, dev: torch.device, n: int, num_groups: int,
+                 num_cells: int):
+        self.lock = threading.Lock()
+        self.buf = torch.zeros((len(CRDT_INPUTS), n), dtype=torch.int32,
+                               device=dev)
+        # a warm-up run first: lazy library set-up and the
+        # allocator's blocks happen outside the capture
+        _program(self.buf, num_groups, num_cells)
+        torch.cuda.current_stream(dev).synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        # other threads keep launching their own batches meanwhile
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = _program(self.buf, num_groups, num_cells)
+
+
+# captured programs by (device, rows, groups, cells), all powers of two,
+# least recently used first; past `_MAX_REPLAYS` the least recently used
+# is dropped (a batch still replaying it holds its own reference) and
+# its memory pool goes with it. The agent's runs use a few shapes each
+# (`replay_stats`, PERF.md §5). A capture synchronizes the card and
+# runs `gc.collect` (`torch.cuda.graph`), and two captures must not
+# share the capture stream: captures take `_CAPTURE_LOCK` one at a time,
+# while batches of shapes already captured go on replaying.
+_REPLAYS: "OrderedDict[tuple, _Replay]" = OrderedDict()
+_REPLAYS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+_MAX_REPLAYS = 64
+_STATS = {"captures": 0, "evicted": 0, "capture_s": 0.0,
+          "captured_bytes": 0}
+
+
+def replay_stats() -> dict:
+    """The cache in this process: shapes held, captures made and the
+    seconds they took, shapes evicted, and the device memory the
+    captures reserved (the growth of `torch.cuda.memory_reserved` across
+    each capture, the graphs' private pools and static buffers)."""
+    with _REPLAYS_LOCK:
+        return {"shapes": len(_REPLAYS), **_STATS}
+
+
+def _cached(key) -> Optional[_Replay]:
+    with _REPLAYS_LOCK:
+        rep = _REPLAYS.get(key)
+        if rep is not None:
+            _REPLAYS.move_to_end(key)
+        return rep
+
+
+def _replay_for(dev: torch.device, n: int, num_groups: int,
+                num_cells: int) -> _Replay:
+    key = (dev.index, n, num_groups, num_cells)
+    rep = _cached(key)
+    if rep is not None:
+        return rep
+    with _CAPTURE_LOCK:
+        rep = _cached(key)
+        if rep is not None:
+            return rep
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(dev)
+        rep = _Replay(dev, n, num_groups, num_cells)
+        grown = torch.cuda.memory_reserved(dev) - reserved
+        with _REPLAYS_LOCK:
+            _REPLAYS[key] = rep
+            while len(_REPLAYS) > _MAX_REPLAYS:
+                _REPLAYS.popitem(last=False)
+                _STATS["evicted"] += 1
+            _STATS["captures"] += 1
+            _STATS["capture_s"] += time.perf_counter() - t0
+            _STATS["captured_bytes"] += max(0, grown)
+    return rep
+
+
+def run_packed(packed: np.ndarray, num_groups: int, num_cells: int, dev,
+               timed: bool = False):
+    """The ten outputs of the program on `packed` inputs (`pack_inputs`),
+    read back in one copy: a graph replay on the card, the ops one by one
+    on the CPU. Returns (outputs as `read_decisions` gives them, device
+    ms or None, the host-to-device copy's ms)."""
+    n = packed.shape[1]
+    sizes = _out_sizes(n, num_groups, num_cells)
+    host = torch.from_numpy(packed)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        buf = host.to(dev)
+        t1 = time.perf_counter()
+        flat = _program(buf, num_groups, num_cells).cpu().numpy()
+        _count_readback()
+        return _split(flat, sizes), None, 1e3 * (t1 - t0)
+    rep = _replay_for(dev, n, num_groups, num_cells)
+    with rep.lock:
+        t0 = time.perf_counter()
+        rep.buf.copy_(host)
+        t1 = time.perf_counter()
+        if timed:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+        rep.graph.replay()
+        if timed:
+            events[1].record()
+        flat = rep.out.cpu().numpy()
+    _count_readback()
+    device_ms = events[0].elapsed_time(events[1]) if timed else None
+    return _split(flat, sizes), device_ms, 1e3 * (t1 - t0)
+
+
+def _decide_and_rebuild(batch, chs, st, rcl, clr, ckf, clf, rdel, rens, dev,
+                        record, t0):
+    """`merge_table_array` past the marshal."""
+    n = len(chs)
+    packed = pack_inputs(batch.arrays)
     t2 = time.perf_counter()
-    timed = record is not None and dev.type == "cuda"
-    if timed:
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        events[0].record()
-    out = _merge_kernel(**inputs)
-    if timed:
-        events[1].record()
-        events[1].synchronize()
-    t3 = time.perf_counter()
+    outs, device_ms, h2d_ms = run_packed(
+        packed, batch.arrays["num_groups"], batch.arrays["num_cells"], dev,
+        timed=record is not None)
     (win, transition, final_cl, any_tr, any_del, max_erase, cell_winner,
-     clock_winner, ambiguous, ev) = outs = read_decisions(out)
+     clock_winner, ambiguous, ev) = outs
     t4 = time.perf_counter()
     if record is not None:
+        # with one graph launch there is no host-side split of device
+        # time and readback: device ms from CUDA events on the card (the
+        # CPU's program time otherwise), readback the rest
+        run_ms = 1e3 * (t4 - t2) - h2d_ms
+        dev_ms = device_ms if device_ms is not None else run_ms
         record.update(
-            marshal_ms=1e3 * (t1 - t0), h2d_ms=1e3 * (t2 - t1),
-            device_ms=(events[0].elapsed_time(events[1]) if timed
-                       else 1e3 * (t3 - t2)),
-            readback_ms=1e3 * (t4 - t3), rebuild_ms=0.0,
+            marshal_ms=1e3 * (t2 - t0), h2d_ms=h2d_ms, device_ms=dev_ms,
+            readback_ms=max(0.0, run_ms - dev_ms), rebuild_ms=0.0,
             rows=len(batch.arrays["grp"]), outputs=outs,
         )
     if bool(ambiguous):

@@ -9,11 +9,13 @@ metrics.py`:
   vector and flight-ring row is indexed in it, so it must stay identical
   to the reference's (tests/test_torch_swim.py and
   tests/test_torch_crdt.py pin it);
-- a minimal `Registry` of counters, gauges and bucketed histograms with
-  a non-mutating `snapshot`, and the process-global `METRICS` the
-  simulation drivers, the CRDT merge engine and the SWIM host path
-  (`agent/membership.py`, `net/transport.py`) publish into, under the
-  reference's series names, among them:
+- a minimal `Registry` of counters, gauges, bucketed histograms and the
+  windowed latency instruments of `runtime/latency.py` (the agent's
+  `corro.e2e.<stage>.seconds`) with a non-mutating `snapshot`, and the
+  process-global `METRICS` the simulation drivers, the CRDT merge
+  engine, the agent and the SWIM host path (`agent/membership.py`,
+  `net/transport.py`) publish into, under the reference's series names,
+  among them:
 
       corro.kernel.events.total{kernel, event}   counter: drained device
                                                  event counts
@@ -142,6 +144,8 @@ class Registry:
         self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
         self._gauges: Dict[Tuple[str, LabelKey], Gauge] = {}
         self._histograms: Dict[Tuple[str, LabelKey], Histogram] = {}
+        # windowed percentile histograms (`runtime/latency.py`)
+        self._latencies: Dict[Tuple[str, LabelKey], object] = {}
         self._lock = threading.Lock()
 
     def _get(self, table, factory, name: str, labels: Dict[str, str]):
@@ -161,10 +165,27 @@ class Registry:
     def histogram(self, name: str, **labels: str) -> Histogram:
         return self._get(self._histograms, Histogram, name, labels)
 
+    def latency(self, name: str, **labels: str):
+        """Windowed percentile histogram (`runtime/latency.py`
+        `WindowedLatency`): log buckets at ~5 % resolution, p50..p999
+        over the sliding window and cumulative."""
+        from corrosion_tpu_torch.runtime.latency import WindowedLatency
+
+        return self._get(self._latencies, WindowedLatency, name, labels)
+
+    def latency_family(self, name: str):
+        """All label sets of one latency series, as (name, labels,
+        instrument) rows, read without minting series."""
+        with self._lock:
+            items = list(self._latencies.items())
+        return [(n, dict(labels), w) for (n, labels), w in items
+                if n == name]
+
     def snapshot(self) -> List[Tuple[str, str, Dict[str, str], float]]:
         """Every series as (kind, name, labels, value) rows, read without
         minting new series; a histogram gives two rows, `<name>_count`
-        and `<name>_sum`."""
+        and `<name>_sum`, and so does a latency instrument (its
+        cumulative histogram)."""
         with self._lock:
             counters = list(self._counters.items())
             gauges = list(self._gauges.items())
@@ -180,6 +201,12 @@ class Registry:
                 cnt, tot = h.count, h.total
             out.append(("histogram", name + "_count", dict(labels), cnt))
             out.append(("histogram", name + "_sum", dict(labels), tot))
+        with self._lock:
+            lats = list(self._latencies.items())
+        for (name, labels), w in lats:
+            c = w.snapshot_cumulative()
+            out.append(("latency", name + "_count", dict(labels), c.count))
+            out.append(("latency", name + "_sum", dict(labels), c.total))
         return out
 
 

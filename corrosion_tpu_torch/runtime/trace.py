@@ -1,30 +1,116 @@
-"""Timed spans: the port's counterpart of `corrosion_tpu/runtime/trace.py`.
+"""Timed spans with W3C context propagation: the port's counterpart of
+`corrosion_tpu/runtime/trace.py`.
 
-`span(name, **attrs)` is a context manager that times its block on the
-host clock and keeps the finished span (name, attributes as strings, wall
-clock at the start, seconds) in the process-global bounded `SPANS` log,
-newest last. The simulation drivers wrap each telemetry publish in one,
-as the reference does, so a span's wall clock lines up with the flight
-frames it drained.
+`span(name, **attrs)` is a context manager that opens a child span of
+the ambient context (a contextvar) or a fresh trace, times its block on
+the host clock and keeps the finished span (name, attributes as strings,
+wall clock at the start, seconds, error, trace and span ids) in the
+process-global bounded `SPANS` log, newest last; it also observes
+`corro_span_seconds{span=}`. The simulation drivers wrap each telemetry
+publish in one, as the reference does, so a span's wall clock lines up
+with the flight frames it drained.
+
+The W3C half is the reference's, byte for byte: `SpanContext` and
+`parse_traceparent` (the `traceparent` header that rides the broadcast
+envelopes and the SyncStart payload), `continue_from` (a server adopts
+the peer's trace id), `stage_span` (one finished stage span as a child
+of a wire context), and the one-byte trace meta of envelope ext v3
+(`make_meta`, `meta_hop`, `meta_forced`, `bump_hop`).
 
 `timed_query(sql, shape=)` times a store statement and logs it, with
 the `corro_slow_queries_total` counter, when it takes a second or more.
 
-Not ported here: W3C context propagation, OTLP export (`runtime/otel.py`)
-and the statement profiler's tap in `timed_query` (`runtime/profiler.py`).
+Not ported: the tail-sampling trace store (`runtime/tracestore.py`),
+OTLP export (`runtime/otel.py`) and the statement profiler's tap in
+`timed_query` (`runtime/profiler.py`); finished spans go to `SPANS` only.
 """
 
 from __future__ import annotations
 
+import contextvars
 import logging
+import os
+import re
 import threading
 import time
 from collections import deque
+from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
 from corrosion_tpu_torch.runtime.metrics import METRICS
 
 log = logging.getLogger(__name__)
+
+_TRACEPARENT = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$"
+)
+
+
+@dataclass
+class SpanContext:
+    trace_id: str  # 32 hex chars
+    span_id: str  # 16 hex chars
+    sampled: bool = True
+
+    def traceparent(self) -> str:
+        flags = "01" if self.sampled else "00"
+        return f"00-{self.trace_id}-{self.span_id}-{flags}"
+
+
+def parse_traceparent(tp: Optional[str]) -> Optional[SpanContext]:
+    if not tp:
+        return None
+    m = _TRACEPARENT.match(tp.strip())
+    if m is None:
+        return None
+    _ver, trace_id, span_id, flags = m.groups()
+    if trace_id == "0" * 32 or span_id == "0" * 16:
+        return None
+    return SpanContext(trace_id, span_id, sampled=flags != "00")
+
+
+_current: contextvars.ContextVar[Optional[SpanContext]] = contextvars.ContextVar(
+    "corro_trace", default=None
+)
+
+
+def _rand_hex(n: int) -> str:
+    return os.urandom(n // 2).hex()
+
+
+# -- tail-sampling trace meta (the envelope ext v3 byte) --------------------
+#
+# One byte rides the broadcast/sync envelopes next to the traceparent
+# (`types/codec.py` _ENVELOPE_EXT_V3): bit 0 carries the origin's head
+# decision, bits 2..7 the relay hop count (capped at 63). Bit 1 is
+# reserved.
+
+TRACE_META_FORCED = 0x01
+_META_HOP_SHIFT = 2
+_META_HOP_MAX = 63
+
+
+def meta_forced(meta: Optional[int]) -> bool:
+    return bool(meta) and bool(meta & TRACE_META_FORCED)
+
+
+def meta_hop(meta: Optional[int]) -> int:
+    return ((meta or 0) >> _META_HOP_SHIFT) & _META_HOP_MAX
+
+
+def make_meta(forced: bool = False, hop: int = 0) -> int:
+    return (TRACE_META_FORCED if forced else 0) | (
+        min(_META_HOP_MAX, max(0, hop)) << _META_HOP_SHIFT
+    )
+
+
+def bump_hop(meta: Optional[int]) -> Optional[int]:
+    """Relay path: same flags, hop + 1 (saturating)."""
+    if meta is None:
+        return None
+    return (meta & ((1 << _META_HOP_SHIFT) - 1)) | (
+        min(_META_HOP_MAX, meta_hop(meta) + 1) << _META_HOP_SHIFT
+    )
 
 
 class FinishedSpan(NamedTuple):
@@ -33,6 +119,9 @@ class FinishedSpan(NamedTuple):
     wall: float  # time.time() at the start
     seconds: float
     error: bool
+    trace_id: str = ""
+    span_id: str = ""
+    parent_span_id: Optional[str] = None
 
 
 class SpanLog:
@@ -57,25 +146,88 @@ SPANS = SpanLog()
 
 
 class Span:
-    """Context manager: times its block and logs it to `SPANS`."""
+    """Context manager: opens a child span of the ambient context (or a
+    fresh trace), times it, histograms it and logs it to `SPANS`."""
 
-    def __init__(self, name: str, attrs: Dict[str, str]):
+    def __init__(
+        self,
+        name: str,
+        parent: Optional[SpanContext] = None,
+        attrs: Optional[Dict[str, str]] = None,
+    ):
         self.name = name
-        self.attrs = attrs
+        self.attrs = attrs or {}
+        ambient = parent if parent is not None else _current.get()
+        self.ctx = SpanContext(
+            trace_id=ambient.trace_id if ambient else _rand_hex(32),
+            span_id=_rand_hex(16),
+            sampled=ambient.sampled if ambient else True,
+        )
+        self.parent = ambient
+        self._token: Optional[contextvars.Token] = None
+        self._start = 0.0
 
     def __enter__(self) -> "Span":
+        self._token = _current.set(self.ctx)
         self._wall = time.time()
         self._start = time.monotonic()
         return self
 
     def __exit__(self, et, e, tb) -> None:
-        SPANS.add(FinishedSpan(self.name, self.attrs, self._wall,
-                               time.monotonic() - self._start,
-                               et is not None))
+        elapsed = time.monotonic() - self._start
+        if self._token is not None:
+            _current.reset(self._token)
+        METRICS.histogram("corro_span_seconds", span=self.name).observe(elapsed)
+        if self.ctx.sampled:
+            SPANS.add(FinishedSpan(
+                self.name, self.attrs, self._wall, elapsed, et is not None,
+                self.ctx.trace_id, self.ctx.span_id,
+                self.parent.span_id if self.parent is not None else None))
 
 
 def span(name: str, **attrs) -> Span:
-    return Span(name, {k: str(v) for k, v in attrs.items()})
+    return Span(name, attrs={k: str(v) for k, v in attrs.items()})
+
+
+def stage_span(
+    traceparent: Optional[str],
+    name: str,
+    stage: str,
+    duration_s: float,
+    error: bool = False,
+    forced: bool = False,
+    **attrs,
+) -> Optional[SpanContext]:
+    """Synthesize one finished stage span as a child of the wire context,
+    covering the last `duration_s` seconds (hop stamps measure
+    origin-to-here wall deltas, which a contextvar-scoped Span cannot
+    represent). None when `traceparent` does not parse."""
+    parent = parse_traceparent(traceparent)
+    if parent is None:
+        return None
+    ctx = SpanContext(
+        trace_id=parent.trace_id,
+        span_id=_rand_hex(16),
+        sampled=parent.sampled,
+    )
+    if not ctx.sampled:
+        return ctx
+    duration_s = max(0.0, duration_s)
+    a = {"stage": stage}
+    a.update({k: str(v) for k, v in attrs.items()})
+    METRICS.histogram("corro_span_seconds", span=name).observe(duration_s)
+    SPANS.add(FinishedSpan(name, a, time.time() - duration_s, duration_s,
+                           error, ctx.trace_id, ctx.span_id,
+                           parent.span_id))
+    return ctx
+
+
+def continue_from(traceparent: Optional[str], name: str, **attrs: str) -> Span:
+    """Server side: adopt the peer's trace id from the wire."""
+    return Span(
+        name, parent=parse_traceparent(traceparent),
+        attrs={k: str(v) for k, v in attrs.items()},
+    )
 
 
 # -- slow-query logging ----------------------------------------------------

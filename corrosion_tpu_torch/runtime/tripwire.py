@@ -1,10 +1,11 @@
 """Tripwire: the cooperative shutdown signal every loop checks — the
-port's copy of `Tripwire` and `Outcome` from
-`corrosion_tpu/runtime/tripwire.py` (its `TaskTracker` and the signal
-hookup `Tripwire.from_signals` are not ported).
+port's copy of `corrosion_tpu/runtime/tripwire.py` (its signal hookup,
+`Tripwire.from_signals`, comes with the CLI).
 
-The SWIM prober's loops (`agent/membership.py`) run until the tripwire
-fires; `preemptible` runs an awaitable unless the tripwire fires first.
+The agent's loops and the SWIM prober's (`agent/membership.py`) run
+until the tripwire fires; `preemptible` runs an awaitable unless the
+tripwire fires first; `TaskTracker` counts the agent's critical tasks so
+that shutdown can wait for them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 from enum import Enum
-from typing import Awaitable, Optional, TypeVar
+from typing import Awaitable, Optional, Set, TypeVar
 
 from corrosion_tpu_torch.runtime.records import FLIGHT
 
@@ -66,3 +67,32 @@ class Tripwire:
             trip_task.cancel()
             with contextlib.suppress(asyncio.CancelledError):
                 await trip_task
+
+
+class TaskTracker:
+    """Counted critical tasks: shutdown waits for them."""
+
+    def __init__(self):
+        self._tasks: Set[asyncio.Task] = set()
+
+    def spawn(self, coro) -> asyncio.Task:
+        task = asyncio.ensure_future(coro)
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
+        return task
+
+    @property
+    def pending(self) -> int:
+        return len(self._tasks)
+
+    async def wait_all(self, timeout: float = 60.0) -> bool:
+        """Wait at most `timeout` for every tracked task; returns True if
+        they all ended (the rest are cancelled)."""
+        if not self._tasks:
+            return True
+        done, pending = await asyncio.wait(
+            set(self._tasks), timeout=timeout
+        )
+        for t in pending:
+            t.cancel()
+        return not pending

@@ -477,11 +477,18 @@ class CrdtStore:
             # shared-cache URI so read_conn() can open real extra
             # connections to the same in-memory database
             CrdtStore._mem_counter += 1
-            path = f"file:crdtmem{id(self)}_{CrdtStore._mem_counter}?mode=memory&cache=shared"
+            # (its own prefix: the JAX package's store names its in-memory
+            # databases the same way with a counter of its own, and a
+            # process holding both must not open the other's database)
+            path = f"file:crdtmemport{id(self)}_{CrdtStore._mem_counter}?mode=memory&cache=shared"
         self.path = path
         # where the array engine's decision program runs: None is the
         # card (resolved at the first array merge), "cpu" only by name
         self.device = device
+        # batches this store's applies decided on the decision program,
+        # and those it declined to the host engines (counted under the
+        # store's lock, so per store and exact with concurrent applies)
+        self.array_lane = {"decided": 0, "declined": 0}
         # the trigger capture gate (r15): the generated AFTER triggers'
         # WHEN clause calls `corro_capture_on()` (registered per
         # connection in _setup_conn) which reads THIS flag — toggling
@@ -2033,6 +2040,7 @@ class CrdtStore:
                     cell_final[tbl], row_delete[tbl], row_ensure[tbl],
                     device=self.device,
                 )
+                self.array_lane["declined" if wins is None else "decided"] += 1
             if wins is None and lib is not None:
                 wins = self._merge_table_native(
                     lib, tbl, chs, local[tbl],

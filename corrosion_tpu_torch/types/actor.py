@@ -1,9 +1,11 @@
-"""Node identity: ActorId (a UUID), ClusterId, Actor — the port's copy of
-`corrosion_tpu/types/actor.py`.
+"""Node identity: ActorId (UUID = site id), ClusterId, Actor — the port's
+copy of `corrosion_tpu/types/actor.py`.
 
-An Actor carries a gossip address, an NTP64 timestamp, a cluster id and a
-bump counter that `renew()` advances when the node rejoins after being
-declared down; (ts, bump) orders the identities of one id.
+Counterpart of `klukai-types/src/actor.rs:26,134,219`. An actor's id doubles
+as its CRDT site id; the Actor carries a gossip address, an HLC timestamp
+(newest timestamp wins address conflicts, `actor.rs:191`), a cluster id, and
+a bump counter used by `renew()` for auto-rejoin after being declared down
+(`actor.rs:199-206`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ class ActorId:
     @classmethod
     def new_random(cls) -> "ActorId":
         return cls(uuid.uuid4().bytes)
+
+    @classmethod
+    def from_uuid_str(cls, s: str) -> "ActorId":
+        return cls(uuid.UUID(s).bytes)
 
     @classmethod
     def zero(cls) -> "ActorId":
@@ -49,11 +55,11 @@ class ClusterId:
 @dataclass(frozen=True)
 class Actor:
     id: ActorId
-    addr: str  # gossip address
+    addr: str  # "host:port" gossip address
     ts: Timestamp = field(default_factory=Timestamp.zero)
     cluster_id: ClusterId = field(default_factory=ClusterId)
     bump: int = 0  # u16 renewal counter
 
     def renew(self) -> "Actor":
-        """New identity for rejoin after being declared down."""
+        """New identity for rejoin after being declared down (actor.rs:199)."""
         return replace(self, ts=Timestamp.now(), bump=(self.bump + 1) & 0xFFFF)
