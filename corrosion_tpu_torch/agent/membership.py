@@ -9,8 +9,9 @@ event-driven path for real nodes; in the port it is the prober that the
 kernel-peer bridge (`models/bridge.py`) is driven with, wired as the
 agent wires it: a listener whose datagram handler calls
 `handle_datagram`, and a `Tripwire` for `start` (`bridge_scale.py`).
-The observatory digest hooks stay `None`, so the prober sends
-digest-free packets.
+There the observatory digest hooks stay `None`, so the prober sends
+digest-free packets; an agent with `cluster.digests` on sets them to
+its observatory (`agent/observatory.py`).
 
 Config scaling follows foca's `new_wan`: probe cadence and suspicion
 windows grow with log(cluster size); packets stay under 1178 B.
@@ -191,8 +192,8 @@ class Membership:
         self._probe_pos = 0
         self._tasks: List[asyncio.Task] = []
         self._escalations: set = set()  # in-flight _probe_escalation tasks
-        # cluster-observatory hooks (the JAX package's
-        # agent/observatory.py; no producer is ported): every outgoing
+        # cluster-observatory hooks (agent/observatory.py, set by
+        # the agent's setup): every outgoing
         # datagram offers its spare packet budget to
         # `digest_source(budget) -> encoded digest | None`, and every
         # received digest ext is handed to `on_digest(src, bytes)`.

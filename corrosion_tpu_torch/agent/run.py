@@ -25,7 +25,9 @@ The port's copy of `corrosion_tpu/agent/run.py`. What differs:
     TCP and QUIC transports are not ported, and `setup` never falls
     back to the in-memory network by itself.
   - `agent.subs` and `agent.updates` stay None (the live-query engines
-    come with the api/pubsub slice), and so does the SLO canary.
+    come with the api/pubsub slice), and so does the SLO canary. The
+    cluster observatory (`cluster.digests`) and the snapshot catch-up
+    plane (`sync.snapshot`) are built as in the JAX package.
 """
 
 from __future__ import annotations
@@ -81,10 +83,6 @@ UNPORTED_PLANES = (
      "ROADMAP §1 item 9.5 (runtime planes)"),
     ("profile", "enabled", "the continuous profiler",
      "ROADMAP §1 item 9.5 (runtime planes)"),
-    ("cluster", "digests", "the cluster observatory and its digests",
-     "ROADMAP §1 item 9.2 (observatory)"),
-    ("sync", "snapshot", "the snapshot catch-up plane",
-     "ROADMAP §1 item 9.1 (catch-up)"),
     ("slo", "canary", "the SLO canary (needs pubsub)",
      "ROADMAP §1 item 9.4 (api/pubsub)"),
 )
@@ -223,6 +221,19 @@ async def setup(
     # agent.subs / agent.updates (the live-query and raw-update engines
     # the change hooks feed) stay None until the api/pubsub slice
 
+    # r12 cluster observatory: telemetry digests piggyback the gossip
+    # datagrams (hooks below) + broadcast envelopes (broadcast_loop);
+    # received digests feed the anti-entropy store the catch-up plane's
+    # gap heuristic and the divergence detector read
+    if config.cluster.digests:
+        from corrosion_tpu_torch.agent.observatory import Observatory
+
+        agent.observatory = Observatory(agent)
+        membership.digest_source = agent.observatory.pick_ext
+        membership.on_digest = (
+            lambda _src, data: agent.observatory.receive(data)
+        )
+
     # SLO plane: per-stage latency objectives + error-budget burn
     from corrosion_tpu_torch.runtime.latency import SloMonitor
 
@@ -317,6 +328,11 @@ async def run(agent: Agent) -> None:
     t.spawn(member_states_loop(agent))
     t.spawn(resurrect_and_schedule_rejoin(agent))
     t.spawn(_announcer(agent))
+    if agent.observatory is not None:
+        # r12: periodic digest build/dissemination + divergence checks
+        from corrosion_tpu_torch.agent.observatory import observatory_loop
+
+        t.spawn(observatory_loop(agent))
     # db maintenance: WAL truncate ladder + incremental vacuum
     # (handlers.rs:379-547) — this is what makes perf.wal_threshold_gb live
     from corrosion_tpu_torch.store.maintenance import vacuum_loop, wal_maintenance_loop

@@ -126,12 +126,11 @@ class AdaptiveChunkSize:
 
 
 async def serve_sync(agent: Agent, stream: BiStream) -> None:
-    """Handle one inbound bi-stream: a SyncStart session. A SnapshotReq
-    (a cold node bootstrapping through the JAX package's catch-up plane,
-    `corrosion_tpu/agent/catchup.py`) is answered as a build without
-    that plane answers it: a ValueError that lands in the counted-failure
-    close below, which the requester reads as EOF and then falls back to
-    pure delta sync. The catch-up plane is not ported."""
+    """Handle one inbound bi-stream: a SyncStart session, or (r17) a
+    SnapshotReq from a cold node bootstrapping (agent/catchup.py).  The
+    dispatch is the version gate: a pre-r17 build raises ValueError on
+    the snapshot variant and lands in the counted-failure close below,
+    which the requester reads as EOF → pure-delta fallback."""
     from corrosion_tpu_torch.types.codec import decode_bi_payload_any
 
     try:
@@ -140,7 +139,10 @@ async def serve_sync(agent: Agent, stream: BiStream) -> None:
             return
         kind, payload = decode_bi_payload_any(first)
         if kind == "snapshot":
-            raise ValueError("snapshot requests are not served here")
+            from corrosion_tpu_torch.agent.catchup import serve_snapshot
+
+            await serve_snapshot(agent, stream, payload)
+            return
         peer_actor_id, trace, cluster_id = payload
         if cluster_id != agent.cluster_id:
             await asyncio.wait_for(
@@ -897,14 +899,28 @@ async def sync_loop(agent: Agent, rng: Optional[random.Random] = None) -> None:
         if not peers:
             interval = min(interval * 2, perf.sync_interval_max_secs)
             continue
-        # the snapshot catch-up of the JAX package's sync loop runs only
-        # with `sync.snapshot` on, which `setup` refuses here: every
-        # round is a delta sync
+        # r17 cold-gap check: a node far enough behind bootstraps from a
+        # peer snapshot FIRST, then the same round's delta sync tops up
+        # from the watermark (agent/catchup.py; never raises)
+        from corrosion_tpu_torch.agent.catchup import maybe_snapshot_bootstrap
+
+        installed = await maybe_snapshot_bootstrap(agent, peers)
         start = time.monotonic()
         try:
-            received = await asyncio.wait_for(
-                parallel_sync(agent, peers), 300
-            )
+            if installed and agent.catchup_census.get("traceparent"):
+                # r19: the watermark top-up continues the bootstrap's
+                # root trace — snapshot fetch + serve + install + delta
+                # top-up read as ONE trace on the collector
+                with continue_from(
+                    agent.catchup_census["traceparent"], "catchup.topup"
+                ):
+                    received = await asyncio.wait_for(
+                        parallel_sync(agent, peers), 300
+                    )
+            else:
+                received = await asyncio.wait_for(
+                    parallel_sync(agent, peers), 300
+                )
         except asyncio.TimeoutError:
             received = 0
         elapsed = max(time.monotonic() - start, 1e-9)

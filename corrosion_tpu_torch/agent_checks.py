@@ -12,6 +12,8 @@ The configuration is the one of the JAX package's agent tests
 window, sync every 0.1-0.5 s, fast SWIM timers) with the planes the port
 does not have yet turned off for both packages (`PLANES_OFF`): a port
 `setup` refuses them, and the same TOML must mean the same thing in both.
+The cluster observatory (`cluster.digests`) and the snapshot catch-up
+plane (`sync.snapshot`) stay on, as the reference's defaults have them.
 
 The scenarios are the JAX package's agent tests (`tests/test_agent.py`):
 insert-and-gossip, an LWW conflict, a late joiner caught up by sync, one
@@ -44,8 +46,7 @@ FAST_SWIM = dict(probe_period=0.05, probe_rtt=0.02, suspicion_mult=1.0)
 # `UNPORTED_PLANES`), turned off for both packages
 PLANES_OFF = (
     ("trace", "enabled"), ("tsdb", "enabled"), ("alerts", "enabled"),
-    ("profile", "enabled"), ("cluster", "digests"), ("sync", "snapshot"),
-    ("slo", "canary"),
+    ("profile", "enabled"), ("slo", "canary"),
 )
 
 

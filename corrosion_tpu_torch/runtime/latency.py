@@ -1,11 +1,12 @@
 """Windowed percentile latency plane: log-bucketed histograms, the
 write→event hop stamps, and the SLO monitor — the port's copy of
-`corrosion_tpu/runtime/latency.py` (without the sparse digest form and
-the report helpers, which only the unported observatory and benches
-use).
+`corrosion_tpu/runtime/latency.py` (without the report helpers, which
+only the unported benches use).
 
 - `LatencyHistogram`: HDR-style log-bucketed counts (~5 % value
-  resolution, 1 µs…1 h span), mergeable (aligned bucket arrays add).
+  resolution, 1 µs…1 h span), mergeable (aligned bucket arrays add),
+  with the sparse form the telemetry digests carry (`to_sparse`,
+  `from_sparse`).
 - `WindowedLatency`: a ring of slot sub-histograms and a cumulative
   one: percentiles over the last N seconds and since boot, from one
   `observe()` per sample; registered in the metrics `Registry`
@@ -121,6 +122,29 @@ class LatencyHistogram:
         at most one 5 % bucket)."""
         ti = bucket_index(threshold)
         return sum(c for i, c in self.counts.items() if i <= ti)
+
+    def nonzero_buckets(self) -> List[Tuple[int, int]]:
+        return sorted(self.counts.items())
+
+    def to_sparse(self) -> Tuple[List[Tuple[int, int]], float]:
+        """(sorted (bucket, count) pairs, total) — the exact state a
+        digest wire codec needs (`runtime/digest.py`): `from_sparse`
+        reconstructs an identical histogram, so merge-of-decoded ≡
+        decode-of-merged holds bucket-for-bucket."""
+        return self.nonzero_buckets(), self.total
+
+    @classmethod
+    def from_sparse(
+        cls, pairs: Sequence[Tuple[int, int]], total: float
+    ) -> "LatencyHistogram":
+        out = cls()
+        for i, c in pairs:
+            if c > 0:
+                out.counts[int(i)] = out.counts.get(int(i), 0) + int(c)
+        out.count = sum(out.counts.values())
+        out.total = float(total)
+        return out
+
 
 class WindowedLatency:
     """A cumulative LatencyHistogram + a ring of time-slot

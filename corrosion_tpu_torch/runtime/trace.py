@@ -13,9 +13,11 @@ with the flight frames it drained.
 The W3C half is the reference's, byte for byte: `SpanContext` and
 `parse_traceparent` (the `traceparent` header that rides the broadcast
 envelopes and the SyncStart payload), `continue_from` (a server adopts
-the peer's trace id), `stage_span` (one finished stage span as a child
-of a wire context), and the one-byte trace meta of envelope ext v3
-(`make_meta`, `meta_hop`, `meta_forced`, `bump_hop`).
+the peer's trace id), `current_traceparent` (the ambient context's
+header, which a snapshot request carries), `stage_span` (one finished
+stage span as a child of a wire context), and the one-byte trace meta
+of envelope ext v3 (`make_meta`, `meta_hop`, `meta_forced`,
+`bump_hop`).
 
 `timed_query(sql, shape=)` times a store statement and logs it, with
 the `corro_slow_queries_total` counter, when it takes a second or more.
@@ -102,6 +104,11 @@ def make_meta(forced: bool = False, hop: int = 0) -> int:
     return (TRACE_META_FORCED if forced else 0) | (
         min(_META_HOP_MAX, max(0, hop)) << _META_HOP_SHIFT
     )
+
+
+def current_traceparent() -> Optional[str]:
+    ctx = _current.get()
+    return ctx.traceparent() if ctx is not None else None
 
 
 def bump_hop(meta: Optional[int]) -> Optional[int]:

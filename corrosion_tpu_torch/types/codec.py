@@ -89,6 +89,17 @@ class Writer:
             self.u8(1)
             write_fn(v)
 
+    def uvarint(self, v: int):
+        """LEB128 unsigned varint — the compact-integer encoding the
+        telemetry-digest codec uses (runtime/digest.py); NOT part of
+        any reference speedy layout."""
+        if v < 0:
+            raise ValueError(f"uvarint of negative {v}")
+        while v >= 0x80:
+            self.buf.append((v & 0x7F) | 0x80)
+            v >>= 7
+        self.buf.append(v)
+
     def bytes(self) -> bytes:
         return bytes(self.buf)
 
@@ -136,6 +147,18 @@ class Reader:
 
     def opt(self, read_fn):
         return read_fn() if self.u8() else None
+
+    def uvarint(self) -> int:
+        out = 0
+        shift = 0
+        while True:
+            b = self.u8()
+            out |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return out
+            shift += 7
+            if shift > 63:
+                raise ValueError("uvarint too long")
 
     def eof(self) -> bool:
         return self.pos >= len(self.data)

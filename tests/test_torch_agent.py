@@ -7,9 +7,10 @@ decision program on the CPU: their converged parts must be equal to each
 other and to the rows written. Then a mixed cluster: a port agent and a
 JAX agent on one JAX `MemNetwork` replicate each other's writes by
 broadcast and by a late joiner's delta sync, and a JAX agent that asks
-the port agent for a snapshot falls back to delta. Database files are
-opened both ways; `setup` refuses every unported plane and a missing
-network, and takes the card when no device is named.
+a port agent with the catch-up plane off for a snapshot falls back to
+delta. Database files are opened both ways; `setup` refuses every
+unported plane and a missing network, and takes the card when no device
+is named.
 
 Every wait is capped and every agent is shut down in a `finally`.
 
@@ -169,9 +170,10 @@ def test_mixed_cluster_replicates_both_ways(tmp_path):
 
 def test_jax_snapshot_request_to_the_port_falls_back_to_delta(tmp_path):
     """A cold JAX agent with the catch-up plane on asks the port agent
-    (its only peer) for a snapshot: the port answers as a build without
-    that plane does, a counted failure close, and the JAX agent catches
-    up by delta sync."""
+    (its only peer, `sync.snapshot` off) for a snapshot: the port
+    rejects it as disabled, the JAX agent counts the rejection and
+    catches up by delta sync."""
+    from corrosion_tpu.runtime.metrics import METRICS as JM
     from corrosion_tpu_torch.runtime.metrics import METRICS as TM
 
     japi, tapi = jax_api(), ac.port_api("cpu")
@@ -181,22 +183,31 @@ def test_jax_snapshot_request_to_the_port_falls_back_to_delta(tmp_path):
         cfg.sync.snapshot = True
         cfg.sync.snapshot_min_gap_versions = 1
 
+    def snapshot_off(cfg):
+        cfg.sync.snapshot = False
+
+    def rejected(reg, name):
+        return reg.counter(name, reason="disabled").value
+
     async def main():
         net = japi.MemNetwork(seed=43)
         agents = []
         try:
-            p = await ac.boot(tapi, net, "port-p", d)
+            p = await ac.boot(tapi, net, "port-p", d, tune=snapshot_off)
             agents.append(p)
             for i in range(30):
                 await ac.insert_many(tapi, p, [(i, f"v{i}")])
-            failed0 = TM.counter("corro.sync.server.failed").value
+            served0 = rejected(TM, "corro.snapshot.serve.rejected.total")
+            asked0 = rejected(JM, "corro.snapshot.bootstrap.rejected.total")
             q = await ac.boot(japi, net, "jax-q", d, ["port-p"],
                               tune=snapshot_on)
             agents.append(q)
             ok = await ac.wait_until(lambda: ac.count_rows(q) == 30,
                                      timeout=30.0)
-            return (ok, TM.counter("corro.sync.server.failed").value
-                    - failed0, dict(q.catchup_census),
+            return (ok, rejected(TM, "corro.snapshot.serve.rejected.total")
+                    - served0,
+                    rejected(JM, "corro.snapshot.bootstrap.rejected.total")
+                    - asked0, dict(q.catchup_census),
                     ac.rows(q) == ac.rows(p))
         finally:
             if len(agents) > 1:
@@ -204,10 +215,12 @@ def test_jax_snapshot_request_to_the_port_falls_back_to_delta(tmp_path):
             await tapi.shutdown(agents[0])
 
     with cb.engine_env("python"):
-        ok, failed, census, same = asyncio.run(
+        ok, served, asked, census, same = asyncio.run(
             asyncio.wait_for(main(), 120.0))
     assert ok and same
-    assert failed >= 1, census
+    # the port counts a rejection as it sends it, the JAX agent as it
+    # reads it: one may still be in flight when the rows are there
+    assert served >= asked >= 1, census
     assert census.get("state") != "installed", census
 
 
@@ -320,7 +333,9 @@ def test_agent_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         asyncio.run(trun.setup(cfg, network=net))
     with pytest.raises(RuntimeError, match="CUDA"):
-        asyncio.run(sync_bench.run_rung(2000, False, 17))
+        asyncio.run(sync_bench.run_rung(2000, False, "delta", 17))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(sync_bench.chaos_phase(29, rows=(10, 4)))
     with pytest.raises(RuntimeError, match="CUDA"):
         asyncio.run(ingest_bench.local_write(1))
     assert not os.path.exists(cfg.db.path)
@@ -333,7 +348,8 @@ def test_sync_rung_and_local_write_rung_equal_the_reference(tmp_path):
     for api, engine in ((jax_api(), "python"),
                         (ac.port_api("cpu"), "array")):
         with cb.engine_env(engine):
-            rec = asyncio.run(sync_bench.run_rung(4000, False, 17, api=api))
+            rec = asyncio.run(sync_bench.run_rung(4000, False, "delta", 17,
+                                                  api=api))
             loc = asyncio.run(ingest_bench.local_write(4, api=api))
         recs.append((rec, loc))
     (j, jl), (t, tl) = recs
@@ -359,8 +375,8 @@ def test_sync_100k_quiet_delta_equals_the_reference():
     for api, engine in ((jax_api(), "python"),
                         (ac.port_api("cpu"), "array")):
         with cb.engine_env(engine):
-            rec = asyncio.run(sync_bench.run_rung(100_000, False, 17,
-                                                  api=api))
+            rec = asyncio.run(sync_bench.run_rung(100_000, False, "delta",
+                                                  17, api=api))
         assert {k: rec[k] for k in SYNC_REF} == SYNC_REF, api.name
 
 
@@ -380,7 +396,8 @@ def jax_refs() -> dict:
                      "versions_per_writer": rec["versions_per_writer"],
                      "rows_total": rec["rows_total"],
                      "held_total": rec["held_total"][0]}
-        s = asyncio.run(sync_bench.run_rung(100_000, False, 17, api=api))
+        s = asyncio.run(sync_bench.run_rung(100_000, False, "delta", 17,
+                                            api=api))
         sync_ref = {k: s[k] for k in ("rows_final", "clock_rows_final",
                                       "held_total", "rows_digest")}
         local = {r["rung"]: r["digest"]

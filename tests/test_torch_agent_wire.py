@@ -648,7 +648,7 @@ def test_unported_planes_are_listed_as_the_tests_turn_them_off():
     # the reference turns every one of them on by default but the canary
     defaults = jconfig.Config()
     assert [getattr(getattr(defaults, s), f) for s, f in ac.PLANES_OFF] == \
-        [True] * 6 + [False]
+        [True] * 4 + [False]
     assert jrun is not None
 
 
