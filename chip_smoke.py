@@ -8,7 +8,12 @@ Phases, each printing one JSON line with its wall (`wall_s`, or
 non-zero before the result line is printed:
 
 1. the card's `nvidia-smi` name and power limit, then the build of every
-   CUDA source of the port (one nvcc per source, all started together);
+   CUDA source of the port (one nvcc per source, all started together),
+   then what the card's host has (`host`): whether `aiohttp` and
+   `cryptography` import, whether `ctypes.util.find_library("nghttp2")`
+   finds a library, `sqlite3.sqlite_version`, and the UDP-GSO probe's
+   answer (`net/quic.py`'s endpoint over loopback, 256 KiB on one bi
+   stream: whether GSO stayed on, its batches, segments and diversions);
 2. the inbox kernel against its plain PyTorch version on the card, at the
    dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
    at the other shapes of `inbox_bench.SHAPES` (n=10^5, n=10^6 and the
@@ -243,12 +248,30 @@ non-zero before the result line is printed:
    older code: ticks only), the detected share at every churn check,
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
-32. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+32. `agent_net`, in a child process of its own started after 24.-31.,
+   beside 33.-35., whose host is idle (beside 24.-31. its agents
+   starved): `agent_checks.scenario_net` at `CHIP_NET` over plaintext
+   QUIC and then over TCP, stores on the card with `array`: agents A and
+   B boot on loopback sockets with the SLO canary on and delta sync only;
+   B attaches the live query `SELECT id, text FROM tests WHERE id % 4 =
+   0` and the `tests` update handle; A writes 10,000 seeded rows in 50
+   transactions of 200 (cut from 20,000 in 100 for the phase's time);
+   once B holds them, C boots with the same watches and catches up by
+   delta sync over the transport's bi streams. Per transport, the rows
+   of A, B and C and the live query's rows on B and C must equal
+   `NET_REF` (the JAX package's run of it on the CPU), the live query's
+   rows must equal a SELECT on each agent's store, its events must be
+   exactly 2,500 inserts on B and on C (the update handle's 10,000
+   inserts), B's and C's stores must have decided
+   batches on the card, and each agent's canary must have seen its own
+   row. Prints B's wall from boot to converged and C's catch-up wall per
+   transport, the events, the decided batches and what each canary saw;
+33. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-33. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+34. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 100 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at ticks 50, 75 and 100; the 14
    event totals at tick 100 from the port's run on the H100 that
@@ -256,11 +279,11 @@ non-zero before the result line is printed:
    prints init s, wall, ms per tick and the peak device memory beside
    the 8.6 GB table (the run to the bar, which does not converge within
    2,000 ticks, is the CLI's);
-34. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+35. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-35. `torch.profiler` must see exactly one device kernel, and no memset,
+36. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -284,6 +307,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import importlib
 import json
 import re
 import subprocess
@@ -521,6 +545,25 @@ INGEST_LOCAL_REF = {
     "ingest-local-w1-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
     "ingest-local-w4-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
     "ingest-local-w16-durable": "1bfab2a06bbf975ea1e23369c6fd494ee6b790f8730fe2d79eaa517cfee9bb50",
+}
+
+# The JAX package's `agent_checks.scenario_net` at `CHIP_NET` on the CPU
+# over each transport (`python -m tests.test_torch_pubsub --ref`): the
+# rows' digest, the live query's rows (digest, count) and events, and the
+# `tests` update handle's events (`agent_checks.net_outcome`).
+NET_REF = {
+    "quic": {
+        "rows_digest": "9f523b004019782e4ea4ab7ba838a073622a88094bcb08d56078ead0c9109f73",
+        "sub_digest": "9edaf295afff3e00c22ac32a1859a0ad4116e78bbdaa799f3a643e9d6192b7ba",
+        "sub_rows": 2500, "events": {"insert": 2500},
+        "updates": {"insert": 10000},
+    },
+    "tcp": {
+        "rows_digest": "9f523b004019782e4ea4ab7ba838a073622a88094bcb08d56078ead0c9109f73",
+        "sub_digest": "9edaf295afff3e00c22ac32a1859a0ad4116e78bbdaa799f3a643e9d6192b7ba",
+        "sub_rows": 2500, "events": {"insert": 2500},
+        "updates": {"insert": 10000},
+    },
 }
 
 # sha256 of the JAX package's bridge replies to `bridge_scale.wire_replies`
@@ -791,6 +834,66 @@ def phase_build() -> dict:
             "sources": _build.sources(), "build_s": time.monotonic() - t0,
             "ptxas": {k: [ln for ln in v.splitlines() if "ptxas info" in ln]
                       for k, v in logs.items()}}
+
+
+def _imports(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+async def _gso_probe() -> dict:
+    """256 KiB on one bi stream between two loopback QUIC endpoints: did
+    the sending endpoint keep UDP GSO on, and how many batches, segments
+    and diversions did its flushes make."""
+    from corrosion_tpu_torch.net.quic import QuicEndpoint, QuicTransport
+    from corrosion_tpu_torch.runtime.metrics import METRICS
+
+    blob = bytes(range(256)) * 1024
+    got = []
+
+    async def on_bi(stream):
+        while (frame := await stream.recv()) is not None:
+            got.append(frame)
+        await stream.send(b"ok")
+        await stream.finish()
+
+    async def nope(*_args):
+        pass
+
+    names = ("batches", "segments", "diverted")
+    before = [METRICS.counter(f"corro.quic.gso.{n}").value for n in names]
+    server = await QuicEndpoint.bind("127.0.0.1", 0)
+    server.serve(nope, nope, on_bi)
+    client = await QuicEndpoint.bind("127.0.0.1", 0)
+    transport = QuicTransport(client)
+    try:
+        bi = await transport.open_bi(server.addr)
+        await bi.send(blob)
+        await bi.finish()
+        ack = await asyncio.wait_for(bi.recv(), 60)
+    finally:
+        await transport.close()
+        await client.close()
+        await server.close()
+    return {"gso_on": client._gso_ok,
+            "transfer_ok": ack == b"ok" and b"".join(got) == blob,
+            **{n: METRICS.counter(f"corro.quic.gso.{n}").value - b
+               for n, b in zip(names, before)}}
+
+
+def phase_host() -> dict:
+    """What the card's host has for the API slice and the QUIC stack."""
+    import ctypes.util
+    import sqlite3
+
+    return {"phase": "host", "ok": True, "aiohttp": _imports("aiohttp"),
+            "cryptography": _imports("cryptography"),
+            "libnghttp2": ctypes.util.find_library("nghttp2"),
+            "sqlite_version": sqlite3.sqlite_version,
+            "udp_gso": asyncio.run(_gso_probe())}
 
 
 def phase_inbox_kernel(dev) -> dict:
@@ -1512,6 +1615,35 @@ def phase_agent_chaos(dev) -> dict:
             **_replay_line(dev)}
 
 
+def phase_agent_net(dev) -> dict:
+    """`scenario_net` at `CHIP_NET` over plaintext QUIC and over TCP,
+    stores on the card with `array`: per transport the rows and the live
+    query's rows equal `NET_REF`, one insert event per live-query row on
+    B and on C, decided batches on both, and every canary saw its own
+    row."""
+    runs = []
+    for transport in ("quic", "tcp"):
+        with crdt_bench.engine_env("array"), tempfile.TemporaryDirectory(
+                prefix=f"agent_net_{transport}") as tmp:
+            rec = asyncio.run(agent_checks.scenario_net(
+                agent_checks.port_api(dev), tmp, transport,
+                **agent_checks.CHIP_NET, timeout=600.0))
+        bad = agent_checks.net_checks(rec, NET_REF[transport])
+        if bad:
+            raise AssertionError(f"agent net over {transport}: {bad}")
+        runs.append({
+            "transport": transport, **rec["walls"],
+            "events": {k: rec[k]["events"] for k in "bc"},
+            "updates": {k: rec[k]["updates"] for k in "bc"},
+            "array_batches": {k: _lane_counts(rec["array_lane"][k])
+                              for k in "abc"},
+            "canary_seen": rec["canary_seen"]})
+    return {"phase": "agent_net", "ok": True,
+            "rows": agent_checks.CHIP_NET["rows"],
+            "txs": agent_checks.CHIP_NET["txs"], "runs": runs,
+            **_replay_line(dev)}
+
+
 # The agent phases and the threaded store check, each in a process of
 # its own, side by side: each is host-bound under its own interpreter
 # lock (an agent's loops and apply threads), and the card serves their
@@ -1524,20 +1656,26 @@ CHILD_PHASES = ("agent_cluster", "agent_sync_100k_array",
                 "agent_local_writes", "store_ingest_threads",
                 "agent_sync_100k_snapshot", "agent_sync_100k_snapshot_fire",
                 "agent_chaos", "pview_churn_100k")
+# `agent_net`'s agents gossip over loopback sockets through a QUIC stack
+# written in Python: beside the ten processes above on the host's eight
+# cores they starved (on an H100 host a late joiner's catch-up and a
+# connect timed out), so it runs in a process of its own beside the
+# card-bound pview phases that follow them, whose host is idle.
+LATE_CHILD_PHASES = ("agent_net",)
 CHILD_PHASE_TIMEOUT_S = 900
 
 
 @contextlib.contextmanager
-def phase_children():
-    """Every entry of `CHILD_PHASES` in a child process of this script at
+def phase_children(names=CHILD_PHASES):
+    """Every entry of `names` in a child process of this script at
     once, started on entry; yields a function that waits for them and
-    returns their lines, each with the wall of its process. A child that
-    fails fails the run with its output; one still running on exit is
-    killed."""
+    returns their lines by name, each with the wall of its process. A
+    child that fails fails the run with its output; one still running on
+    exit is killed."""
     procs = []
     with tempfile.TemporaryDirectory(prefix="agent_phases") as tmp:
         try:
-            for name in CHILD_PHASES:
+            for name in names:
                 out = open(Path(tmp) / f"{name}.out", "w+")
                 err = open(Path(tmp) / f"{name}.err", "w+")
                 procs.append((name, out, err, time.monotonic(),
@@ -1573,7 +1711,7 @@ def _watch_children(procs, ends: dict) -> None:
         time.sleep(0.2)
 
 
-def _collect_children(procs, ends: dict, watch) -> list:
+def _collect_children(procs, ends: dict, watch) -> dict:
     watch.join()
     lines = {}
     # a failed child first, then one cut by the timeout
@@ -1590,6 +1728,12 @@ def _collect_children(procs, ends: dict, watch) -> list:
         line = json.loads(text.splitlines()[-1])
         line["process_wall_s"] = ends[name] - t0
         lines[name] = line
+    return lines
+
+
+def _agent_lines(lines: dict) -> list:
+    """`CHILD_PHASES`' lines in print order, the two engines' runs of
+    `agent_sync_100k` as one line."""
     sync = [lines.pop(f"agent_sync_100k_{e}") for e in ("array", "python")]
     for line in sync:
         del line["phase"], line["ok"], line["rows"]
@@ -2083,12 +2227,13 @@ def main() -> int:
         return 2
     dev = torch.device("cuda:0")
     if sys.argv[1:2] == ["--child-phase"]:
-        if sys.argv[2] not in CHILD_PHASES:
+        if sys.argv[2] not in CHILD_PHASES + LATE_CHILD_PHASES:
             raise SystemExit(f"unknown child phase {sys.argv[2]!r}")
         emit(timed(globals()[f"phase_{sys.argv[2]}"], dev))
         return 0
     t_start = time.monotonic()
     emit(timed(phase_build))
+    emit(timed(phase_host))
     inbox = timed(phase_inbox_kernel, dev)
     emit(inbox)
     emit(timed(phase_entry, dev))
@@ -2125,15 +2270,21 @@ def main() -> int:
         emit(churn_ref)
         emit(timed(phase_pview_smoke, dev))
         emit(timed(phase_pview_flight, dev))
-        lines = children()
+        lines = _agent_lines(children())
     side_by_side = time.monotonic() - t0
     for line in lines:
         # a child's own wall is its process's (`process_wall_s`)
         line["side_by_side_wall_s"] = side_by_side
         emit(line)
-    emit(timed(phase_pview_churn_25k, dev))
-    emit(timed(phase_pview_boot_1m, dev))
-    emit(timed(phase_pview_profile, dev))
+    t0 = time.monotonic()
+    with phase_children(LATE_CHILD_PHASES) as late:
+        emit(timed(phase_pview_churn_25k, dev))
+        emit(timed(phase_pview_boot_1m, dev))
+        emit(timed(phase_pview_profile, dev))
+        lines = late()
+    for name in LATE_CHILD_PHASES:
+        lines[name]["side_by_side_wall_s"] = time.monotonic() - t0
+        emit(lines[name])
     paths = {"dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"],
              "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],

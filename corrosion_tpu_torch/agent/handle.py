@@ -12,7 +12,7 @@ from __future__ import annotations
 import asyncio
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from corrosion_tpu_torch.agent.members import Members
 from corrosion_tpu_torch.agent.membership import Membership
@@ -82,6 +82,11 @@ class Agent:
     # r11 SLO plane: per-agent latency-objective monitor
     # (runtime/latency.py SloMonitor), checked by /v1/slo + the canary
     slo: Optional[object] = None
+    # canary rows this agent's canary loop saw come back through its
+    # subscription: its own ("local") and other nodes' ("remote"). The
+    # latency histograms are process-global; these count per agent
+    canary_seen: Dict[str, int] = field(
+        default_factory=lambda: {"local": 0, "remote": 0})
     # r12 cluster observatory (agent/observatory.py): digest
     # anti-entropy store + view-divergence detector, serves /v1/cluster
     observatory: Optional[object] = None

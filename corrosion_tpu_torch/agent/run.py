@@ -21,13 +21,19 @@ The port's copy of `corrosion_tpu/agent/run.py`. What differs:
     initialised on the calling thread before any apply worker runs.
   - The planes that are not ported yet are refused, never skipped: a
     config that enables one makes `setup` raise NotImplementedError
-    naming the flag (`UNPORTED_PLANES`). So is a missing `network`: the
-    TCP and QUIC transports are not ported, and `setup` never falls
-    back to the in-memory network by itself.
-  - `agent.subs` and `agent.updates` stay None (the live-query engines
-    come with the api/pubsub slice), and so does the SLO canary. The
-    cluster observatory (`cluster.digests`) and the snapshot catch-up
-    plane (`sync.snapshot`) are built as in the JAX package.
+    naming the flag (`UNPORTED_PLANES`).
+  - With no `network`, the gossip plane binds real sockets as the JAX
+    package does: plaintext QUIC (`net/quic.py`) or UDP datagrams plus
+    TCP streams, with TLS unless `gossip.plaintext` (`net/tcp.py`,
+    `tls.py`). A socket that fails to bind, or TLS settings that do not
+    load, are errors: `setup` never falls back to another transport or
+    to plaintext.
+  - `agent.subs` and `agent.updates` (the live-query and raw-update
+    engines, `pubsub/`) are built on every agent and fed every
+    committed batch; `slo.canary` runs `canary_loop`, which also counts
+    what it saw in `agent.canary_seen`. The cluster observatory
+    (`cluster.digests`) and the snapshot catch-up plane
+    (`sync.snapshot`) are built as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from corrosion_tpu_torch.agent.membership import (
 )
 from corrosion_tpu_torch.agent.syncer import serve_sync, sync_loop
 from corrosion_tpu_torch.net.mem import MemNetwork
+from corrosion_tpu_torch.net.tcp import TcpListener, TcpTransport, split_addr
 from corrosion_tpu_torch.net.transport import BiStream
 from corrosion_tpu_torch.runtime.channels import bounded
 from corrosion_tpu_torch.runtime.config import Config
@@ -83,8 +90,6 @@ UNPORTED_PLANES = (
      "ROADMAP §1 item 9.5 (runtime planes)"),
     ("profile", "enabled", "the continuous profiler",
      "ROADMAP §1 item 9.5 (runtime planes)"),
-    ("slo", "canary", "the SLO canary (needs pubsub)",
-     "ROADMAP §1 item 9.4 (api/pubsub)"),
 )
 
 
@@ -109,6 +114,74 @@ def _init_cuda(dev) -> None:
         torch.zeros(1, device=dev).sum().item()
 
 
+async def _bind_gossip(config: Config):
+    """(listener, transport) of the gossip plane on real sockets, as JAX
+    `setup` binds them: plaintext QUIC, or UDP + TCP (TLS unless
+    `gossip.plaintext`). Whatever was bound is released on an error."""
+    if config.gossip.transport == "quic":
+        # plaintext QUIC, the reference's native gossip plane
+        # (quinn_plaintext.rs:23-35): datagram/uni/bi lanes on one UDP
+        # socket
+        from corrosion_tpu_torch.net.quic import (
+            MAX_UDP,
+            QuicEndpoint,
+            QuicTransport,
+        )
+
+        host, port = split_addr(config.gossip.bind_addr)
+        # parse BEFORE binding anything: a malformed client_addr must
+        # not leave the gossip socket bound behind a config error
+        c_host, c_port = split_addr(config.gossip.client_addr or ":0")
+        mtu = min(config.gossip.max_mtu or MAX_UDP, MAX_UDP)
+        listener = await QuicEndpoint.bind(
+            host or "127.0.0.1", port,
+            # gossip.max_mtu (api/peer/mod.rs:121-150 fixed-MTU knob)
+            mtu=mtu,
+        )
+        # outbound spread (transport.rs:57-71): 8 hashed dial-only
+        # sockets when client_addr's port is 0 (the default), 1 when an
+        # operator pinned a port
+        n_client = 8 if c_port == 0 else 1
+        client_eps = []
+        try:
+            for _ in range(n_client):
+                client_eps.append(await QuicEndpoint.bind(
+                    c_host or host or "127.0.0.1", c_port,
+                    mtu=mtu, accept_inbound=False,
+                ))
+        except OSError:
+            # e.g. a pinned client_addr port already in use: release
+            # everything bound so far or a setup() retry hits EADDRINUSE
+            # on our own gossip port
+            for ep in client_eps:
+                await ep.close()
+            await listener.close()
+            raise
+        transport = QuicTransport(
+            listener, idle_timeout=float(config.gossip.idle_timeout_secs),
+            client_endpoints=client_eps,
+        )
+        return listener, transport
+    host, port = split_addr(config.gossip.bind_addr)
+    server_ctx = client_ctx = None
+    if not config.gossip.plaintext:
+        # secured gossip plane (peer/mod.rs:152-373): plaintext stays
+        # the explicit opt-in via gossip.plaintext = true. An operator
+        # who turned plaintext OFF with a broken/missing [gossip.tls]
+        # gets an error here — never a plaintext fallback
+        from corrosion_tpu_torch.tls import build_ssl_contexts
+
+        server_ctx, client_ctx = build_ssl_contexts(config.gossip.tls)
+    listener = await TcpListener.bind(
+        host or "127.0.0.1", int(port), ssl_context=server_ctx
+    )
+    transport = TcpTransport(
+        listener, ssl_context=client_ctx,
+        idle_timeout=float(config.gossip.idle_timeout_secs),
+    )
+    return listener, transport
+
+
 async def setup(
     config: Config,
     network: Optional[MemNetwork] = None,
@@ -116,16 +189,18 @@ async def setup(
     device=None,
 ) -> Agent:
     refuse_unported(config)
-    if network is None:
-        if config.gossip.transport not in ("tcp", "quic"):
-            raise ValueError(
-                f"unknown gossip.transport {config.gossip.transport!r} "
-                "(expected 'tcp' or 'quic')"
-            )
-        raise NotImplementedError(
-            f"gossip.transport = {config.gossip.transport!r} is not ported "
-            "yet (ROADMAP §1 item 9.3: tcp, quic, h2, hpack); pass the "
-            "in-memory `network`"
+    if network is None and config.gossip.transport not in ("tcp", "quic"):
+        raise ValueError(
+            f"unknown gossip.transport {config.gossip.transport!r} "
+            "(expected 'tcp' or 'quic')"
+        )
+    if (network is None and config.gossip.transport == "quic"
+            and not config.gossip.plaintext):
+        # refused before the store opens or anything binds
+        raise ValueError(
+            "gossip.transport = 'quic' supports plaintext mode only "
+            "(set gossip.plaintext = true, or use the tcp transport "
+            "with [gossip.tls])"
         )
     dev = resolve_device(device)
     _init_cuda(dev)
@@ -157,9 +232,16 @@ async def setup(
     store = await asyncio.to_thread(_boot_store)
     clock = HLClock()
 
-    addr = config.gossip.bind_addr
-    listener = network.listener(addr)
-    transport = network.transport(addr)
+    if network is not None:
+        addr = config.gossip.bind_addr
+        listener = network.listener(addr)
+        transport = network.transport(addr)
+    else:
+        try:
+            listener, transport = await _bind_gossip(config)
+        except BaseException:
+            store.close()
+            raise
 
     gossip_addr = config.gossip.external_addr or listener.addr
     actor = Actor(
@@ -218,8 +300,16 @@ async def setup(
         ),
     )
 
-    # agent.subs / agent.updates (the live-query and raw-update engines
-    # the change hooks feed) stay None until the api/pubsub slice
+    # live-query + raw-update engines fed from every committed batch
+    from corrosion_tpu_torch.pubsub import SubsManager, UpdatesManager
+
+    agent.subs = SubsManager(
+        store,
+        config.db.subscriptions_path,
+        batch_wait=config.pubsub.candidate_batch_wait,
+        cfg=config.subs,
+    )
+    agent.updates = UpdatesManager(store)
 
     # r12 cluster observatory: telemetry digests piggyback the gossip
     # datagrams (hooks below) + broadcast envelopes (broadcast_loop);
@@ -233,6 +323,8 @@ async def setup(
         membership.on_digest = (
             lambda _src, data: agent.observatory.receive(data)
         )
+    agent.change_hooks.append(agent.subs.match_changes)
+    agent.change_hooks.append(agent.updates.match_changes)
 
     # SLO plane: per-stage latency objectives + error-budget burn
     from corrosion_tpu_torch.runtime.latency import SloMonitor
@@ -328,6 +420,11 @@ async def run(agent: Agent) -> None:
     t.spawn(member_states_loop(agent))
     t.spawn(resurrect_and_schedule_rejoin(agent))
     t.spawn(_announcer(agent))
+    if agent.config.slo.canary:
+        # opt-in end-to-end canary probe (r11): synthetic writes under a
+        # self-subscription, continuously measuring true write→event
+        # latency on the live cluster
+        t.spawn(canary_loop(agent))
     if agent.observatory is not None:
         # r12: periodic digest build/dissemination + divergence checks
         from corrosion_tpu_torch.agent.observatory import observatory_loop
@@ -434,6 +531,133 @@ async def _announcer(agent: Agent) -> None:
                 t.cancel()
                 with contextlib.suppress(asyncio.CancelledError):
                     await t
+
+
+async def canary_loop(agent: Agent) -> None:
+    """The SLO canary (r11): write one tiny synthetic row per interval
+    to the canary table through the REAL public write path, watch it
+    come back through a REAL self-subscription, and record the observed
+    write→event latency — the ground-truth end-to-end measurement the
+    per-stage `corro.e2e.*` histograms decompose.
+
+    Every node keys its own row by actor id, so on a cluster each
+    node's subscription also receives the OTHER nodes' canary updates:
+    those measure true cross-node write→event latency from the origin
+    wall stamp embedded in the row (scope="remote", skew-clamped).
+    Each cycle also runs the agent's SloMonitor check, which is what
+    arms the sustained-breach incident dump on a live cluster. Every
+    row seen is counted in `agent.canary_seen`."""
+    import time as _time
+
+    from corrosion_tpu_torch.pubsub.matcher import SubDead
+    from corrosion_tpu_torch.runtime.latency import e2e_observe
+    from corrosion_tpu_torch.runtime.records import FLIGHT
+
+    cfg = agent.config.slo
+    table = cfg.canary_table
+
+    def ensure_table() -> None:
+        # additive re-apply: the schema engine diffs declaratively, so
+        # the canary table must be appended to the FULL current schema
+        # (not applied alone — that would unregister the user's tables)
+        if table in agent.store.schema.tables:
+            return
+        parts = []
+        for t in agent.store.schema.tables.values():
+            parts.append(t.raw_sql.rstrip(";") + ";")
+            for idx in t.indexes.values():
+                parts.append(idx.raw_sql.rstrip(";") + ";")
+        parts.append(
+            f'CREATE TABLE "{table}" (src TEXT NOT NULL PRIMARY KEY,'
+            " n INTEGER, wall REAL);"
+        )
+        agent.store.apply_schema_sql("\n".join(parts))
+
+    try:
+        await asyncio.to_thread(ensure_table)
+        handle, _created = await agent.subs.get_or_insert(
+            f'SELECT src, n, wall FROM "{table}"'
+        )
+    except Exception:
+        log.exception("canary disabled: table/subscription setup failed")
+        return
+    q = handle.attach()
+    src = str(agent.actor_id)
+    n = 0
+    loop = asyncio.get_running_loop()
+    try:
+        while not agent.tripwire.tripped:
+            n += 1
+            wall = _time.time()
+            try:
+                await make_broadcastable_changes(
+                    agent,
+                    lambda tx: [
+                        tx.execute(
+                            f'INSERT OR REPLACE INTO "{table}"'
+                            " (src, n, wall) VALUES (?, ?, ?)",
+                            [src, n, wall],
+                        )
+                    ],
+                )
+            except Exception:
+                METRICS.counter("corro.slo.canary.missed.total").inc()
+                await asyncio.sleep(cfg.canary_interval_secs)
+                continue
+            METRICS.counter("corro.slo.canary.writes.total").inc()
+            # drain subscription events until our own row's event lands
+            # (or the wait budget elapses → a miss); remote canary rows
+            # observed along the way measure cross-node latency
+            deadline = loop.time() + max(2.0, cfg.canary_interval_secs)
+            got = False
+            while not got:
+                timeout = deadline - loop.time()
+                if timeout <= 0:
+                    break
+                try:
+                    item = await asyncio.wait_for(q.get(), timeout)
+                except asyncio.TimeoutError:
+                    break
+                if item is None or isinstance(item, SubDead):
+                    return  # subscription torn down: canary ends
+                for ev in item:
+                    vals = ev.values
+                    if len(vals) < 3:
+                        continue
+                    if vals[0] == src:
+                        if vals[1] == n:
+                            lat = _time.time() - wall
+                            e2e_observe("canary", lat, scope="local")
+                            METRICS.gauge(
+                                "corro.slo.canary.last.seconds"
+                            ).set(lat)
+                            FLIGHT.record_host_frame(
+                                "canary",
+                                {"lat_us": int(lat * 1e6), "remote": 0},
+                            )
+                            agent.canary_seen["local"] += 1
+                            got = True
+                    elif vals[2]:
+                        lat = e2e_observe(
+                            "canary",
+                            _time.time() - float(vals[2]),
+                            scope="remote",
+                        )
+                        FLIGHT.record_host_frame(
+                            "canary",
+                            {"lat_us": int(lat * 1e6), "remote": 1},
+                        )
+                        agent.canary_seen["remote"] += 1
+            if not got:
+                METRICS.counter("corro.slo.canary.missed.total").inc()
+            if agent.slo is not None:
+                agent.slo.check()
+            remain = (wall + cfg.canary_interval_secs) - _time.time()
+            if remain > 0:
+                with contextlib.suppress(asyncio.TimeoutError):
+                    await asyncio.wait_for(agent.tripwire.wait(), remain)
+    finally:
+        handle.detach(q)
 
 
 async def shutdown(agent: Agent) -> None:

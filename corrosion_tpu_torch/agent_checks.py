@@ -13,13 +13,19 @@ window, sync every 0.1-0.5 s, fast SWIM timers) with the planes the port
 does not have yet turned off for both packages (`PLANES_OFF`): a port
 `setup` refuses them, and the same TOML must mean the same thing in both.
 The cluster observatory (`cluster.digests`) and the snapshot catch-up
-plane (`sync.snapshot`) stay on, as the reference's defaults have them.
+plane (`sync.snapshot`) stay on, as the reference's defaults have them;
+the SLO canary stays off (its default) unless a scenario turns it on.
+
+Agents gossip over the in-memory network (`transport="mem"`) or over
+real loopback sockets (`"quic"`, `"tcp"`; `loopback_addr` picks a free
+port as `tests/test_agent.py::free_port` does).
 
 The scenarios are the JAX package's agent tests (`tests/test_agent.py`):
 insert-and-gossip, an LWW conflict, a late joiner caught up by sync, one
 `parallel_sync` round trip, a transaction large enough for several
 broadcast chunks, a shed queue repaired by sync, and the stress shape of
-six agents on a random bootstrap topology (`cluster_run`). Each returns
+six agents on a random bootstrap topology (`cluster_run`); and the
+socket transports under a live query (`scenario_net`). Each returns
 what it saw as plain data; timing differs from run to run in both
 packages, so what is held equal is the converged part: the rows every
 agent ends with where only one writer wrote, and equality across agents
@@ -31,9 +37,12 @@ Every wait is capped, and every agent is shut down on every exit path.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
+import inspect
 import os
 import random
+import socket
 import time
 from types import SimpleNamespace
 from typing import Callable, List, Optional
@@ -46,8 +55,9 @@ FAST_SWIM = dict(probe_period=0.05, probe_rtt=0.02, suspicion_mult=1.0)
 # `UNPORTED_PLANES`), turned off for both packages
 PLANES_OFF = (
     ("trace", "enabled"), ("tsdb", "enabled"), ("alerts", "enabled"),
-    ("profile", "enabled"), ("slo", "canary"),
+    ("profile", "enabled"),
 )
+TRANSPORTS = ("mem", "quic", "tcp")
 
 
 def port_api(device=None) -> SimpleNamespace:
@@ -74,11 +84,46 @@ def port_api(device=None) -> SimpleNamespace:
     )
 
 
-def fast_config(api, addr: str, db_dir: str, bootstrap=()):
+def free_port(dgram: bool = False) -> int:
+    """A loopback port free at the time of the call (racy by nature:
+    the socket closes before the agent binds it)."""
+    kind = socket.SOCK_DGRAM if dgram else socket.SOCK_STREAM
+    with socket.socket(socket.AF_INET, kind) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def loopback_addr(transport: str) -> str:
+    """A free `127.0.0.1:port` for a socket transport: a UDP port for
+    QUIC; for TCP a port free for both its streams and its datagrams
+    (the listener binds UDP and TCP on one port)."""
+    if transport == "quic":
+        return f"127.0.0.1:{free_port(dgram=True)}"
+    if transport != "tcp":
+        raise ValueError(f"no loopback address for transport {transport!r}")
+    for _ in range(64):
+        port = free_port()
+        try:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        return f"127.0.0.1:{port}"
+    raise OSError("no loopback port free for both TCP and UDP")
+
+
+def fast_config(api, addr: str, db_dir: str, bootstrap=(),
+                transport: str = "mem"):
+    """The test config for an agent at `addr` (a name on the in-memory
+    network, `host:port` on a socket transport)."""
+    if transport not in TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r}")
     cfg = api.Config()
     cfg.db.path = os.path.join(db_dir, addr.replace(":", "_") + ".db")
     cfg.gossip.bind_addr = addr
     cfg.gossip.bootstrap = list(bootstrap)
+    if transport != "mem":
+        cfg.gossip.transport = transport
     cfg.perf.broadcast_interval_ms = 20
     cfg.perf.apply_queue_timeout_ms = 5
     cfg.perf.sync_interval_min_secs = 0.1
@@ -90,10 +135,14 @@ def fast_config(api, addr: str, db_dir: str, bootstrap=()):
 
 async def boot(api, net, addr: str, db_dir: str, bootstrap=(),
                tune: Optional[Callable] = None, swim=None,
-               before_run: Optional[Callable] = None):
+               before_run: Optional[Callable] = None,
+               transport: str = "mem"):
     """setup + schema + run, as the JAX package's tests boot an agent;
-    `before_run(agent)`, if given, runs just before `run`."""
-    cfg = fast_config(api, addr, db_dir, bootstrap)
+    `before_run(agent)`, if given, runs (or is awaited) just before
+    `run`. A socket transport binds `addr` itself (`net` is None)."""
+    if (net is None) != (transport != "mem"):
+        raise ValueError(f"transport {transport!r} with network {net!r}")
+    cfg = fast_config(api, addr, db_dir, bootstrap, transport)
     if tune is not None:
         tune(cfg)
     agent = await api.setup(cfg, network=net)
@@ -101,7 +150,9 @@ async def boot(api, net, addr: str, db_dir: str, bootstrap=(),
         agent.membership.config = swim or api.SwimConfig(**FAST_SWIM)
         agent.store.apply_schema_sql(TEST_SCHEMA)
         if before_run is not None:
-            before_run(agent)
+            res = before_run(agent)
+            if inspect.isawaitable(res):
+                await res
         await api.run(agent)
     except BaseException:
         await api.shutdown(agent)
@@ -463,4 +514,197 @@ def cluster_checks(rec: dict) -> List[str]:
     lane = rec["array_lane"]
     if lane is not None and lane["decided"] == 0:
         bad.append(f"array lane {lane}")
+    return bad
+
+
+# -- the socket transports under a live query ---------------------------------
+
+NET_QUERY = "SELECT id, text FROM tests WHERE id % 4 = 0"
+NET_SEED = 71
+# `chip_smoke.py`'s agent_net: 10,000 rows in 50 transactions of 200 (cut
+# from 20,000 in 100 for the phase's ~120 s: PERF.md §4)
+CHIP_NET = dict(rows=10_000, txs=50)
+
+
+def net_rows(rows: int) -> list:
+    """The rows A writes: ids 1..rows, text from
+    `random.Random(NET_SEED)`."""
+    rng = random.Random(NET_SEED)
+    return [(i, f"n{rng.getrandbits(48):012x}") for i in range(1, rows + 1)]
+
+
+class _EventTally:
+    """Drains one subscription queue (live query or table updates) into
+    counts per event kind, until the queue ends or `stop`."""
+
+    def __init__(self, q: asyncio.Queue):
+        self.q = q
+        self.kinds: dict = {}
+        self.task = asyncio.ensure_future(self._drain())
+
+    async def _drain(self) -> None:
+        while True:
+            item = await self.q.get()
+            if item is None or not isinstance(item, (list, tuple)):
+                return
+            for ev in item if isinstance(item, list) else (item,):
+                kind = getattr(ev, "kind", None) or ev[0]
+                self.kinds[kind] = self.kinds.get(kind, 0) + 1
+
+    async def stop(self) -> None:
+        self.task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await self.task
+
+
+async def _watch(agent, watches: dict) -> None:
+    """Attach the live query and the `tests` update handle on `agent`
+    (before its store sees a row of the run)."""
+    handle, _ = await agent.subs.get_or_insert(NET_QUERY)
+    upd, _ = await agent.updates.get_or_insert("tests")
+    watches[agent.store.site_id.bytes16] = (
+        handle, _EventTally(handle.attach()), _EventTally(upd.attach()))
+
+
+async def scenario_net(api, db_dir: str, transport: str, rows: int = 400,
+                       txs: int = 4, timeout: float = 120.0) -> dict:
+    """Agents A and B boot on `transport` with the SLO canary on and
+    delta sync only (`sync.snapshot = false`); B attaches `NET_QUERY` and
+    the `tests` update handle; A writes `net_rows(rows)` in `txs`
+    transactions; once B holds them, C boots with the same watches
+    and catches up by delta sync.
+
+    Returns, per agent, the rows digest, and for B and C the live query's
+    materialized rows (digest, and whether they equal a SELECT on the
+    agent's store), its event counts per kind, the update handle's, the
+    port's array lane, what each canary saw and the walls."""
+    net = api.MemNetwork(seed=37) if transport == "mem" else None
+    addrs = ([f"net-{x}" for x in "abc"] if transport == "mem"
+             else [loopback_addr(transport) for _ in range(3)])
+    expected = net_rows(rows)
+    watches: dict = {}
+    agents = []
+
+    def tune(cfg):
+        cfg.slo.canary = True
+        cfg.sync.snapshot = False
+
+    async def start(i, bootstrap, watched):
+        return await boot(
+            api, net, addrs[i], db_dir, bootstrap, tune=tune,
+            transport=transport,
+            before_run=(lambda ag: _watch(ag, watches)) if watched else None)
+
+    def watched(ag):
+        return watches[ag.store.site_id.bytes16]
+
+    def caught_up(ag) -> bool:
+        _h, sub, _u = watched(ag)
+        return (count_rows(ag) == rows
+                and sub.kinds.get("insert", 0) >= rows // 4)
+
+    try:
+        t0 = time.monotonic()
+        agents.append(await start(0, [], False))
+        agents.append(await start(1, [addrs[0]], True))
+        a, b = agents
+        await _sizes(agents, 2, 20.0)
+        per = -(-rows // txs)
+        for k in range(0, rows, per):
+            await insert_many(api, a, expected[k:k + per])
+        if not await wait_until(lambda: caught_up(b), timeout=timeout,
+                                step=0.05):
+            raise AssertionError(
+                f"{api.name} {transport}: B holds {count_rows(b)} of {rows}"
+                f" rows, {watched(b)[1].kinds} events, live query error "
+                f"{watched(b)[0].error}")
+        wall_b = time.monotonic() - t0
+        t1 = time.monotonic()
+        agents.append(await start(2, addrs[:2], True))
+        c = agents[2]
+        if not await wait_until(lambda: caught_up(c), timeout=timeout,
+                                step=0.05):
+            raise AssertionError(
+                f"{api.name} {transport}: C holds {count_rows(c)} of {rows}"
+                f" rows, {watched(c)[1].kinds} events, live query error "
+                f"{watched(c)[0].error}")
+        wall_c = time.monotonic() - t1
+        # the port's agents count what their canary saw (JAX: None)
+        seen = [getattr(ag, "canary_seen", None) for ag in agents]
+        await wait_until(lambda: all(s is None or s["local"] > 0
+                                     for s in seen), timeout=10.0)
+        # the update handles flush on their own task: let them settle
+        await wait_until(
+            lambda: all(watched(ag)[2].kinds.get("insert", 0) >= rows
+                        for ag in (b, c)), timeout=10.0)
+        out = {"transport": transport, "rows": rows, "txs": txs,
+               "expected_digest": digest(expected),
+               "rows_digest": [digest(query(
+                   ag, "SELECT id, text FROM tests ORDER BY id"))
+                   for ag in agents]}
+        for name, ag in (("b", b), ("c", c)):
+            handle, sub, upd = watched(ag)
+            mat = sorted(tuple(v) for _rid, v in handle.matcher.all_rows())
+            sel = query(ag, NET_QUERY + " ORDER BY id")
+            out[name] = {
+                "sub_digest": digest(mat), "sub_rows": len(mat),
+                "sub_equals_select": mat == sel,
+                "events": dict(sorted(sub.kinds.items())),
+                "updates": dict(sorted(upd.kinds.items())),
+            }
+        out["array_lane"] = {name: getattr(ag.store, "array_lane", None)
+                             for name, ag in zip("abc", agents)}
+        out["canary_seen"] = [None if s is None else dict(s) for s in seen]
+        out["walls"] = {"b_boot_to_converged_s": wall_b,
+                        "c_catch_up_s": wall_c}
+        return out
+    finally:
+        for _h, sub, upd in watches.values():
+            await sub.stop()
+            await upd.stop()
+        # together: an agent left alone would spend its shutdown trying
+        # to tell peers that are already gone
+        done = await asyncio.gather(*(api.shutdown(ag) for ag in agents),
+                                    return_exceptions=True)
+        errors = [e for e in done if isinstance(e, BaseException)]
+        if errors:
+            raise errors[0]
+
+
+def net_outcome(rec: dict) -> dict:
+    """The part of a `scenario_net` record that must equal the JAX
+    package's (`chip_smoke.NET_REF`): the same in every run."""
+    return {
+        "rows_digest": rec["rows_digest"][0],
+        "sub_digest": rec["b"]["sub_digest"],
+        "sub_rows": rec["b"]["sub_rows"],
+        "events": rec["b"]["events"],
+        "updates": rec["b"]["updates"],
+    }
+
+
+def net_checks(rec: dict, ref: dict) -> List[str]:
+    """What must hold of a `scenario_net` record against the reference
+    outcome `ref` (`net_outcome` of the JAX package's run)."""
+    bad = []
+    if set(rec["rows_digest"]) != {ref["rows_digest"]}:
+        bad.append(f"rows digests {rec['rows_digest']}")
+    if rec["expected_digest"] != ref["rows_digest"]:
+        bad.append("the reference's rows are not the rows written")
+    for name in ("b", "c"):
+        got = rec[name]
+        for key in ("sub_digest", "sub_rows", "events", "updates"):
+            if got[key] != ref[key]:
+                bad.append(f"{name}.{key} {got[key]} != {ref[key]}")
+        if not got["sub_equals_select"]:
+            bad.append(f"{name}: live query rows differ from its SELECT")
+        if got["events"].get("insert") != rec["rows"] // 4:
+            bad.append(f"{name}: {got['events']} insert events, "
+                       f"expected {rec['rows'] // 4}")
+        lane = rec["array_lane"][name]
+        if lane is not None and lane["decided"] == 0:
+            bad.append(f"{name}: array lane {lane}")
+    seen = rec["canary_seen"]
+    if any(s is not None and s["local"] == 0 for s in seen):
+        bad.append(f"canary not observed: {seen}")
     return bad

@@ -235,6 +235,26 @@ class BatchStamp:
     traceparent: Optional[str] = None
     trace_meta: Optional[int] = None
 
+    def oldest(self, other: Optional["BatchStamp"]) -> "BatchStamp":
+        if other is None:
+            return self
+        if self.origin is not None and other.origin is not None:
+            older = self if self.origin <= other.origin else other
+            origin = older.origin
+        elif self.origin is not None:
+            older, origin = self, self.origin
+        elif other.origin is not None:
+            older, origin = other, other.origin
+        else:
+            older, origin = (self if self.traceparent else other), None
+        return BatchStamp(
+            origin=origin,
+            applied=min(self.applied, other.applied),
+            traceparent=older.traceparent,
+            trace_meta=older.trace_meta,
+        )
+
+
 def _registry(registry=None):
     if registry is not None:
         return registry

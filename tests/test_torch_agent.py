@@ -9,8 +9,8 @@ JAX agent on one JAX `MemNetwork` replicate each other's writes by
 broadcast and by a late joiner's delta sync, and a JAX agent that asks
 a port agent with the catch-up plane off for a snapshot falls back to
 delta. Database files are opened both ways; `setup` refuses every
-unported plane and a missing network, and takes the card when no device
-is named.
+unported plane and an unknown transport, binds loopback sockets when no
+network is given, and takes the card when no device is named.
 
 Every wait is capped and every agent is shut down in a `finally`.
 
@@ -313,12 +313,27 @@ def test_setup_refuses_each_unported_plane(tmp_path, plane):
 
 
 def test_setup_refuses_a_missing_network(tmp_path):
+    """No `network`: the agent binds loopback sockets of the configured
+    transport (never the in-memory network), and an unknown transport is
+    refused."""
     api = ac.port_api("cpu")
+
+    async def boot_and_stop(cfg):
+        agent = await trun.setup(cfg, device="cpu")
+        try:
+            return type(agent.transport).__name__, agent.listener.addr
+        finally:
+            await trun.shutdown(agent)
+
+    for transport, kind in (("tcp", "TcpTransport"),
+                            ("quic", "QuicTransport")):
+        cfg = ac.fast_config(api, "127.0.0.1:0", str(tmp_path),
+                             transport=transport)
+        cfg.db.path = str(tmp_path / f"{transport}.db")
+        name, addr = asyncio.run(asyncio.wait_for(boot_and_stop(cfg), 60))
+        assert name == kind and addr.startswith("127.0.0.1:")
+        assert not addr.endswith(":0")
     cfg = ac.fast_config(api, "127.0.0.1:0", str(tmp_path))
-    for transport in ("tcp", "quic"):
-        cfg.gossip.transport = transport
-        with pytest.raises(NotImplementedError, match="9.3"):
-            asyncio.run(trun.setup(cfg, device="cpu"))
     cfg.gossip.transport = "carrier-pigeon"
     with pytest.raises(ValueError, match="unknown gossip.transport"):
         asyncio.run(trun.setup(cfg, device="cpu"))

@@ -645,10 +645,13 @@ def test_membership_additions_are_the_reference(monkeypatch):
 def test_unported_planes_are_listed_as_the_tests_turn_them_off():
     assert tuple((s, f) for s, f, _w, _i in trun.UNPORTED_PLANES) == \
         ac.PLANES_OFF
-    # the reference turns every one of them on by default but the canary
+    # the reference turns every one of them on by default; the canary,
+    # ported now, is off by default and no longer refused
     defaults = jconfig.Config()
     assert [getattr(getattr(defaults, s), f) for s, f in ac.PLANES_OFF] == \
-        [True] * 4 + [False]
+        [True] * 4
+    assert ("slo", "canary") not in ac.PLANES_OFF
+    assert defaults.slo.canary is False
     assert jrun is not None
 
 
