@@ -13,7 +13,9 @@ non-zero before the result line is printed:
    `cryptography` import, whether `ctypes.util.find_library("nghttp2")`
    finds a library, `sqlite3.sqlite_version`, and the UDP-GSO probe's
    answer (`net/quic.py`'s endpoint over loopback, 256 KiB on one bi
-   stream: whether GSO stayed on, its batches, segments and diversions);
+   stream: whether GSO stayed on, its batches, segments and diversions),
+   and the seconds loopback TCP takes for 120,000 bytes in 3,000 writes
+   of 40 B and in 30 writes of 4,000 B;
 2. the inbox kernel against its plain PyTorch version on the card, at the
    dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
    at the other shapes of `inbox_bench.SHAPES` (n=10^5, n=10^6 and the
@@ -249,8 +251,8 @@ non-zero before the result line is printed:
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
 32. `agent_net`, in a child process of its own started after 24.-31.,
-   beside 33.-35., whose host is idle (beside 24.-31. its agents
-   starved): `agent_checks.scenario_net` at `CHIP_NET` over plaintext
+   beside 35.-37., whose host is idle (beside 24.-31. its agents
+   starved), as are 33. and 34.: `agent_checks.scenario_net` at `CHIP_NET` over plaintext
    QUIC and then over TCP, stores on the card with `array`: agents A and
    B boot on loopback sockets with the SLO canary on and delta sync only;
    B attaches the live query `SELECT id, text FROM tests WHERE id % 4 =
@@ -266,12 +268,39 @@ non-zero before the result line is printed:
    batches on the card, and each agent's canary must have seen its own
    row. Prints B's wall from boot to converged and C's catch-up wall per
    transport, the events, the decided batches and what each canary saw;
-33. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+33. `agent_api`: `agent_checks.scenario_api` at `CHIP_NET` over
+   plaintext QUIC, stores on the card with `array`: agents A, B and C
+   each serve the public API (`ApiServer` on `127.0.0.1:0`), and every
+   client is the port's `CorrosionApiClient` over h2. B's client opens a
+   `/v1/subscriptions` stream on the live query above and a
+   `/v1/updates/tests` stream; A's client writes the 10,000 rows in 50
+   `/v1/transactions` calls; once B's streams hold them, C boots with
+   the same two streams open and catches up by delta sync. On B and on
+   C the stream's rows and `/v1/queries` must equal `API_REF` (the JAX
+   package's run on the CPU), the same query from an HTTP/1.1 client on
+   the same port must give the same rows, both streams must carry one insert event
+   per row, both stores must have decided batches on the card,
+   `/v1/status` must read `chaos.active` false and the plane-off
+   endpoints (`/v1/traces`, `/v1/alerts`, `/v1/remediation`,
+   `/v1/profile`) must give the JAX package's bodies. Then B's API stops
+   with both streams live: `stop()` must return within 10 s and both
+   streams end with a typed error (or cleanly) within 20 s of the stop.
+   Prints the walls (first row on B, all rows on B, C's catch-up), the
+   event rate per stream and the HPACK codec of the clients' live h2
+   connections;
+34. `pubsub_bench`: `pubsub_bench.main` over the `--all` grid (rows
+   {5k, 20k, 80k} × 1 subscription, 5k × {1, 16, 128} shared, 5k × 16
+   distinct) and `streams_rung` at 1,000 × 10 shared, 1,000 distinct and
+   10,000 × 10 shared streams, each on one port agent: every rung must
+   deliver `n_rows` events to each stream. Prints each rung's event
+   rate, write rate and wall. Its writes are local commits, which run no
+   merge engine: the host's serving plane on the card's machine;
+35. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-34. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+36. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 100 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at ticks 50, 75 and 100; the 14
    event totals at tick 100 from the port's run on the H100 that
@@ -279,11 +308,11 @@ non-zero before the result line is printed:
    prints init s, wall, ms per tick and the peak device memory beside
    the 8.6 GB table (the run to the bar, which does not converge within
    2,000 ticks, is the CLI's);
-35. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+37. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-36. `torch.profiler` must see exactly one device kernel, and no memset,
+38. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -334,6 +363,7 @@ from corrosion_tpu_torch import (
 from corrosion_tpu_torch import agent_checks
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import ingest_bench, native, store_checks, sync_bench
+from corrosion_tpu_torch import pubsub_bench
 from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
@@ -563,6 +593,29 @@ NET_REF = {
         "sub_digest": "9edaf295afff3e00c22ac32a1859a0ad4116e78bbdaa799f3a643e9d6192b7ba",
         "sub_rows": 2500, "events": {"insert": 2500},
         "updates": {"insert": 10000},
+    },
+}
+
+# The JAX package's `agent_checks.scenario_api` at `CHIP_NET` over QUIC on
+# the CPU (`python -m tests.test_torch_api --ref`): the rows' digest, the
+# subscription stream's rows (digest, count) and events, `/v1/queries`'
+# rows, the updates stream's events, `/v1/status`'s chaos census and the
+# plane-off endpoints' bodies, `actor_id` masked (`agent_checks.api_outcome`).
+API_REF = {
+    "rows_digest": "9f523b004019782e4ea4ab7ba838a073622a88094bcb08d56078ead0c9109f73",
+    "sub_digest": "9edaf295afff3e00c22ac32a1859a0ad4116e78bbdaa799f3a643e9d6192b7ba",
+    "sub_rows": 2500,
+    "query_digest": "9edaf295afff3e00c22ac32a1859a0ad4116e78bbdaa799f3a643e9d6192b7ba",
+    "events": {"insert": 2500}, "updates": {"insert": 10000},
+    "chaos": {"active": False, "scenario": None, "since": None,
+              "injections": {}},
+    "planes_off": {
+        "/v1/traces": [200, {"actor_id": "<actor>",
+                             "census": {"enabled": False}, "traces": []}],
+        "/v1/alerts": [200, {"enabled": False, "rules": [], "active": []}],
+        "/v1/remediation": [200, {"enabled": False, "actuators": [],
+                                  "history": []}],
+        "/v1/profile": [200, {"enabled": False}],
     },
 }
 
@@ -884,8 +937,34 @@ async def _gso_probe() -> dict:
                for n, b in zip(names, before)}}
 
 
+async def _loopback_writes(n: int, size: int) -> float:
+    """Seconds for `n` writes of `size` bytes (each write drained) from an
+    asyncio server to a client reading on loopback TCP."""
+    async def serve(_r, w):
+        for _ in range(n):
+            w.write(b"x" * size)
+            await w.drain()
+        w.close()
+
+    srv = await asyncio.start_server(serve, "127.0.0.1", 0)
+    t0 = time.monotonic()
+    r, w = await asyncio.open_connection(
+        "127.0.0.1", srv.sockets[0].getsockname()[1])
+    got = 0
+    while chunk := await asyncio.wait_for(r.read(65536), 30.0):
+        got += len(chunk)
+    wall = time.monotonic() - t0
+    w.close()
+    srv.close()
+    if got != n * size:
+        raise AssertionError(f"loopback: {got} of {n * size} bytes")
+    return wall
+
+
 def phase_host() -> dict:
-    """What the card's host has for the API slice and the QUIC stack."""
+    """What the card's host has for the API slice and the QUIC stack, and
+    what its loopback TCP charges for the same 120,000 bytes in small and
+    in large writes (the API writes each stream event as one write)."""
     import ctypes.util
     import sqlite3
 
@@ -893,7 +972,10 @@ def phase_host() -> dict:
             "cryptography": _imports("cryptography"),
             "libnghttp2": ctypes.util.find_library("nghttp2"),
             "sqlite_version": sqlite3.sqlite_version,
-            "udp_gso": asyncio.run(_gso_probe())}
+            "udp_gso": asyncio.run(_gso_probe()),
+            "loopback_s": {
+                "3000x40B": asyncio.run(_loopback_writes(3000, 40)),
+                "30x4000B": asyncio.run(_loopback_writes(30, 4000))}}
 
 
 def phase_inbox_kernel(dev) -> dict:
@@ -1644,6 +1726,77 @@ def phase_agent_net(dev) -> dict:
             **_replay_line(dev)}
 
 
+def phase_agent_api(dev) -> dict:
+    """`scenario_api` at `CHIP_NET` over plaintext QUIC, stores on the
+    card with `array`, every client the port's h2 `CorrosionApiClient`:
+    on B and on C the subscription stream's rows, `/v1/queries` (equal
+    over HTTP/1.1 on the same port), both streams' events, `/v1/status`'s chaos census and the plane-off
+    endpoints equal `API_REF`, both stores decided batches on the card,
+    and B's API, stopped with both streams live, returns within 10 s
+    while the streams end typed within 20 s."""
+    inbox_cuda.build_inbox.launches = 0
+    with crdt_bench.engine_env("array"), tempfile.TemporaryDirectory(
+            prefix="agent_api") as tmp:
+        rec = asyncio.run(agent_checks.scenario_api(
+            agent_checks.port_api(dev), tmp, "quic",
+            **agent_checks.CHIP_NET, timeout=600.0))
+    # the API path runs no SWIM tick: the inbox kernel's count stays 0
+    launches = inbox_cuda.build_inbox.launches
+    bad = agent_checks.api_checks(rec, API_REF)
+    if bad:
+        raise AssertionError(f"agent api: {bad}")
+    return {"phase": "agent_api", "ok": True, "transport": "quic",
+            "rows": agent_checks.CHIP_NET["rows"],
+            "txs": agent_checks.CHIP_NET["txs"],
+            # the codec of the clients' live h2 connections in the run
+            "hpack_codec": {k: rec[k]["hpack_codec"] for k in "bc"},
+            **rec["walls"],
+            "event_rate_per_s": {k: rec[k]["rate_per_s"] for k in "bc"},
+            "events": {k: rec[k]["events"] for k in "bc"},
+            "updates": {k: rec[k]["updates"] for k in "bc"},
+            "array_batches": {k: _lane_counts(rec["array_lane"][k])
+                              for k in "abc"},
+            "restart": rec["restart"], "inbox_build_launches": launches,
+            **_replay_line(dev)}
+
+
+# `pubsub_bench.SCALE_RUNGS` this phase runs: 1,000 × 10 shared, 1,000
+# distinct and 10,000 × 10 shared (the 100,000-stream rung is the CLI's)
+PUBSUB_SCALE_RUNGS = pubsub_bench.SCALE_RUNGS[:3]
+
+
+def phase_pubsub_bench(dev) -> dict:
+    """`pubsub_bench`'s `--all` grid and three SUBS_SCALE rungs, each on
+    one port agent whose store opens on the card: every rung must
+    deliver `n_rows` events to each of its streams (the ladder's
+    over-limit probe answered with the typed 503). Local commits run no
+    merge engine: this is the host's serving plane on the card's
+    machine."""
+    rungs = []
+    for n_rows, batch, n_subs, distinct in pubsub_bench.ALL_RUNGS:
+        rec = asyncio.run(pubsub_bench.main(n_rows, batch, n_subs,
+                                            distinct=distinct, device=dev))
+        if rec["events_delivered"] != n_rows * n_subs:
+            raise AssertionError(f"pubsub rung {rec['rung']}: "
+                                 f"{rec['events_delivered']} events")
+        rungs.append({k: rec[k] for k in (
+            "rung", "events_delivered", "event_rate_per_s",
+            "write_rate_per_s", "write_wall_s", "total_wall_s")})
+    for n_streams, n_queries, n_rows, distinct in PUBSUB_SCALE_RUNGS:
+        rec = asyncio.run(pubsub_bench.streams_rung(
+            n_streams, n_queries, n_rows, distinct=distinct, device=dev))
+        if (rec["events_delivered"] != rec["events_expected"]
+                or not rec["admission"]["over_limit_probe_rejected"]):
+            raise AssertionError(f"subs rung {rec['rung']}: {rec}")
+        rungs.append({
+            **{k: rec[k] for k in (
+                "rung", "events_delivered", "event_rate_per_s",
+                "write_wall_s", "setup_wall_s", "total_wall_s",
+                "deliver_p99_s", "matchers")},
+            "write_rate_per_s": n_rows / rec["write_wall_s"]})
+    return {"phase": "pubsub_bench", "ok": True, "rungs": rungs}
+
+
 # The agent phases and the threaded store check, each in a process of
 # its own, side by side: each is host-bound under its own interpreter
 # lock (an agent's loops and apply threads), and the card serves their
@@ -1661,7 +1814,8 @@ CHILD_PHASES = ("agent_cluster", "agent_sync_100k_array",
 # cores they starved (on an H100 host a late joiner's catch-up and a
 # connect timed out), so it runs in a process of its own beside the
 # card-bound pview phases that follow them, whose host is idle.
-LATE_CHILD_PHASES = ("agent_net",)
+# `agent_api` and `pubsub_bench` (host-bound serving planes) join it there.
+LATE_CHILD_PHASES = ("agent_net", "agent_api", "pubsub_bench")
 CHILD_PHASE_TIMEOUT_S = 900
 
 
@@ -2285,7 +2439,8 @@ def main() -> int:
     for name in LATE_CHILD_PHASES:
         lines[name]["side_by_side_wall_s"] = time.monotonic() - t0
         emit(lines[name])
-    paths = {"dense_pick": pick["inbox_kernel_launches"],
+    paths = {"agent_api": lines["agent_api"]["inbox_build_launches"],
+             "dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"],
              "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],
              "dense_100k_pick": dense_100k_pick["inbox_kernel_launches"],

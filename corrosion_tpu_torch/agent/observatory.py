@@ -31,13 +31,13 @@ for rounds where it was itself late (the Lifeguard discipline of r9:
 never turn your own sickness into accusations of peers); the view-hash
 comparison is timing-free and stays armed.
 
-The port's copy of `corrosion_tpu/agent/observatory.py`. What differs:
-the port has no HTTP API yet (ROADMAP §1 item 9.4), so `cluster_report`
-and `cluster_alerts` are what those endpoints would serve; and it has no
-continuous profiler or alert engine (item 9.5), so a port digest's
-hotspot and alert blocks are empty (`agent.alerts` stays None), as a JAX
-node's are with those planes off, and `cluster_hotspots` (the profile
-endpoint's cluster view) comes with the profiler.
+The port's copy of `corrosion_tpu/agent/observatory.py`. The port's
+HTTP API (`api/http.py`) serves `cluster_report` at `GET /v1/cluster`,
+`cluster_alerts` at `GET /v1/alerts?scope=cluster` and
+`cluster_hotspots` at `GET /v1/profile?scope=cluster`. What differs: the
+port has no continuous profiler or alert engine yet (ROADMAP §1 item
+9.5), so a port digest's hotspot and alert blocks are empty
+(`agent.alerts` stays None), as a JAX node's are with those planes off.
 """
 
 from __future__ import annotations
@@ -463,6 +463,53 @@ class Observatory:
         for row in rollup.values():
             row["firing"].sort()
             row["pending"].sort()
+        return {
+            "actor_id": str(self.agent.actor_id),
+            "scope": "cluster",
+            "coverage": {
+                "known": len(nodes),
+                "fresh": sum(1 for n in nodes.values() if n["fresh"]),
+                "stale_after_secs": stale_after,
+            },
+            "rollup": rollup,
+            "nodes": nodes,
+        }
+
+    def cluster_hotspots(self) -> dict:
+        """What `GET /v1/profile?scope=cluster` serves: every node's
+        digest-carried top self-time frames plus a cluster-merged
+        hotspot table — from ANY single node, over the anti-entropy
+        store.  Same rebuild-at-read + fresh-only-rollup discipline as
+        cluster_alerts; a node whose digest shed its hotspot block
+        under the wire-budget ladder simply contributes none."""
+        self.build_and_store()
+        now_mono = time.monotonic()
+        stale_after = self.cfg.stale_after_secs
+        nodes: Dict[str, dict] = {}
+        merged: Dict[str, int] = {}
+        with self._lock:  # snapshot vs the worker-thread builder
+            held_all = list(self._store.values())
+        for held in held_all:
+            d = held.digest
+            age = now_mono - held.received_mono
+            name = str(ActorId(d.actor_id))
+            nodes[name] = {
+                "age_secs": round(age, 3),
+                "fresh": age <= stale_after,
+                "hotspots": list(d.hotspots),
+            }
+            if age > stale_after:
+                continue  # stale digests list but never roll up
+            for h in d.hotspots:
+                merged[h["frame"]] = (
+                    merged.get(h["frame"], 0) + int(h["samples"])
+                )
+        rollup = [
+            {"frame": fr, "samples": n}
+            for fr, n in sorted(
+                merged.items(), key=lambda kv: (-kv[1], kv[0])
+            )
+        ]
         return {
             "actor_id": str(self.agent.actor_id),
             "scope": "cluster",

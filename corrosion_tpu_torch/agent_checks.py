@@ -66,6 +66,9 @@ def port_api(device=None) -> SimpleNamespace:
     from corrosion_tpu_torch.agent import run as run_mod
     from corrosion_tpu_torch.agent.membership import SwimConfig
     from corrosion_tpu_torch.agent.syncer import parallel_sync
+    from corrosion_tpu_torch.api.http import ApiServer
+    from corrosion_tpu_torch.client import ClientError, CorrosionApiClient
+    from corrosion_tpu_torch.net.h2 import StreamReset
     from corrosion_tpu_torch.net.mem import MemNetwork
     from corrosion_tpu_torch.runtime.config import Config
     from corrosion_tpu_torch.runtime.metrics import METRICS
@@ -81,6 +84,8 @@ def port_api(device=None) -> SimpleNamespace:
         make_broadcastable_changes=run_mod.make_broadcastable_changes,
         parallel_sync=parallel_sync, MemNetwork=MemNetwork, Config=Config,
         SwimConfig=SwimConfig, held_total=held_total, METRICS=METRICS,
+        ApiServer=ApiServer, CorrosionApiClient=CorrosionApiClient,
+        ClientError=ClientError, StreamReset=StreamReset,
     )
 
 
@@ -158,6 +163,23 @@ async def boot(api, net, addr: str, db_dir: str, bootstrap=(),
         await api.shutdown(agent)
         raise
     return agent
+
+
+async def boot_with_api(api, net, addr: str, db_dir: str, bootstrap=(),
+                        **kw):
+    """`boot`, then an `ApiServer` on `127.0.0.1:0` (the JAX package's
+    `tests/test_http_api.py::boot_with_api`): returns the agent, the
+    server and an h2 `CorrosionApiClient` on it."""
+    agent = await boot(api, net, addr, db_dir, bootstrap, **kw)
+    server = api.ApiServer(agent)
+    try:
+        agent.config.api.bind_addr = ["127.0.0.1:0"]
+        await server.start()
+    except BaseException:
+        await server.stop()
+        await api.shutdown(agent)
+        raise
+    return agent, server, api.CorrosionApiClient(server.addrs[0])
 
 
 async def shutdown_all(api, agents) -> None:
@@ -557,111 +579,132 @@ class _EventTally:
             await self.task
 
 
-async def _watch(agent, watches: dict) -> None:
-    """Attach the live query and the `tests` update handle on `agent`
-    (before its store sees a row of the run)."""
-    handle, _ = await agent.subs.get_or_insert(NET_QUERY)
-    upd, _ = await agent.updates.get_or_insert("tests")
-    watches[agent.store.site_id.bytes16] = (
-        handle, _EventTally(handle.attach()), _EventTally(upd.attach()))
+class _InProcess:
+    """`scenario_net`'s plane: A writes through its store (`insert_many`),
+    and B's and C's events come off the agents' own live-query and
+    `tests` update handles, attached before their stores see a row of
+    the run. The SLO canary is on."""
 
+    prefix = "net"
 
-async def scenario_net(api, db_dir: str, transport: str, rows: int = 400,
-                       txs: int = 4, timeout: float = 120.0) -> dict:
-    """Agents A and B boot on `transport` with the SLO canary on and
-    delta sync only (`sync.snapshot = false`); B attaches `NET_QUERY` and
-    the `tests` update handle; A writes `net_rows(rows)` in `txs`
-    transactions; once B holds them, C boots with the same watches
-    and catches up by delta sync.
+    def __init__(self, api, rows: int):
+        self.api, self.rows = api, rows
+        self.watches: dict = {}
 
-    Returns, per agent, the rows digest, and for B and C the live query's
-    materialized rows (digest, and whether they equal a SELECT on the
-    agent's store), its event counts per kind, the update handle's, the
-    port's array lane, what each canary saw and the walls."""
-    net = api.MemNetwork(seed=37) if transport == "mem" else None
-    addrs = ([f"net-{x}" for x in "abc"] if transport == "mem"
-             else [loopback_addr(transport) for _ in range(3)])
-    expected = net_rows(rows)
-    watches: dict = {}
-    agents = []
-
-    def tune(cfg):
+    def tune(self, cfg) -> None:
         cfg.slo.canary = True
         cfg.sync.snapshot = False
 
-    async def start(i, bootstrap, watched):
-        return await boot(
-            api, net, addrs[i], db_dir, bootstrap, tune=tune,
-            transport=transport,
-            before_run=(lambda ag: _watch(ag, watches)) if watched else None)
+    async def attach(self, name: str, agent, watched: bool) -> None:
+        if watched:
+            handle, _ = await agent.subs.get_or_insert(NET_QUERY)
+            upd, _ = await agent.updates.get_or_insert("tests")
+            self.watches[name] = (handle, _EventTally(handle.attach()),
+                                  _EventTally(upd.attach()))
 
-    def watched(ag):
-        return watches[ag.store.site_id.bytes16]
+    async def write(self, items) -> None:
+        await insert_many(self.api, self.agents[0], items)
 
-    def caught_up(ag) -> bool:
-        _h, sub, _u = watched(ag)
-        return (count_rows(ag) == rows
-                and sub.kinds.get("insert", 0) >= rows // 4)
+    def complete(self, name: str, agent) -> bool:
+        _h, sub, _u = self.watches[name]
+        return (count_rows(agent) == self.rows
+                and sub.kinds.get("insert", 0) >= self.rows // 4)
 
-    try:
-        t0 = time.monotonic()
-        agents.append(await start(0, [], False))
-        agents.append(await start(1, [addrs[0]], True))
-        a, b = agents
-        await _sizes(agents, 2, 20.0)
-        per = -(-rows // txs)
-        for k in range(0, rows, per):
-            await insert_many(api, a, expected[k:k + per])
-        if not await wait_until(lambda: caught_up(b), timeout=timeout,
-                                step=0.05):
-            raise AssertionError(
-                f"{api.name} {transport}: B holds {count_rows(b)} of {rows}"
-                f" rows, {watched(b)[1].kinds} events, live query error "
-                f"{watched(b)[0].error}")
-        wall_b = time.monotonic() - t0
-        t1 = time.monotonic()
-        agents.append(await start(2, addrs[:2], True))
-        c = agents[2]
-        if not await wait_until(lambda: caught_up(c), timeout=timeout,
-                                step=0.05):
-            raise AssertionError(
-                f"{api.name} {transport}: C holds {count_rows(c)} of {rows}"
-                f" rows, {watched(c)[1].kinds} events, live query error "
-                f"{watched(c)[0].error}")
-        wall_c = time.monotonic() - t1
+    def state(self, name: str) -> str:
+        handle, sub, _u = self.watches[name]
+        return f"{sub.kinds} events, live query error {handle.error}"
+
+    async def settle(self) -> None:
         # the port's agents count what their canary saw (JAX: None)
-        seen = [getattr(ag, "canary_seen", None) for ag in agents]
+        seen = [getattr(ag, "canary_seen", None) for ag in self.agents]
         await wait_until(lambda: all(s is None or s["local"] > 0
                                      for s in seen), timeout=10.0)
-        # the update handles flush on their own task: let them settle
+        # the update handles flush on their own task
         await wait_until(
-            lambda: all(watched(ag)[2].kinds.get("insert", 0) >= rows
-                        for ag in (b, c)), timeout=10.0)
+            lambda: all(u.kinds.get("insert", 0) >= self.rows
+                        for _h, _s, u in self.watches.values()), timeout=10.0)
+
+    async def observe(self, name: str, agent, since: float) -> dict:
+        handle, sub, upd = self.watches[name]
+        mat = sorted(tuple(v) for _rid, v in handle.matcher.all_rows())
+        return {"sub_digest": digest(mat), "sub_rows": len(mat),
+                "query_digest": digest(query(agent, NET_QUERY + " ORDER BY id")),
+                "events": dict(sorted(sub.kinds.items())),
+                "updates": dict(sorted(upd.kinds.items()))}
+
+    async def finish(self, out: dict) -> None:
+        out["canary_seen"] = [
+            None if s is None else dict(s)
+            for s in (getattr(ag, "canary_seen", None) for ag in self.agents)]
+
+    async def close(self) -> None:
+        for _h, sub, upd in self.watches.values():
+            await sub.stop()
+            await upd.stop()
+
+
+async def _scenario(api, db_dir: str, transport: str, plane, rows: int,
+                    txs: int, timeout: float) -> dict:
+    """The body `scenario_net` and `scenario_api` share. Agents A and B
+    boot on `transport` (delta sync only), A writes `net_rows(rows)` in
+    `txs` transactions, and once B's watches hold every row, C boots with
+    the same watches and catches up by delta sync. `plane` says how the
+    agents are reached: `tune` and `attach` (just before each agent
+    runs), `write`, `complete`, `state` (for a failure's message),
+    `settle`, `observe` (per watched agent), `finish` and `close`."""
+    net = api.MemNetwork(seed=37) if transport == "mem" else None
+    addrs = ([f"{plane.prefix}-{x}" for x in "abc"] if transport == "mem"
+             else [loopback_addr(transport) for _ in range(3)])
+    expected = net_rows(rows)
+    agents = plane.agents = []
+
+    async def start(i: int, bootstrap, watched: bool):
+        name = "abc"[i]
+        agents.append(await boot(
+            api, net, addrs[i], db_dir, bootstrap, tune=plane.tune,
+            transport=transport,
+            before_run=lambda ag: plane.attach(name, ag, watched)))
+        return agents[-1]
+
+    async def converge(name: str, ag) -> None:
+        if not await wait_until(lambda: plane.complete(name, ag),
+                                timeout=timeout, step=0.05):
+            raise AssertionError(
+                f"{api.name} {transport}: {name.upper()} holds "
+                f"{count_rows(ag)} of {rows} rows, {plane.state(name)}")
+
+    try:
+        t_boot = time.monotonic()
+        await start(0, [], False)
+        b = await start(1, [addrs[0]], True)
+        await _sizes(agents, 2, 20.0)
+        per = -(-rows // txs)
+        t0 = time.monotonic()
+        for k in range(0, rows, per):
+            await plane.write(expected[k:k + per])
+        write_s = time.monotonic() - t0
+        await converge("b", b)
+        t_b = time.monotonic()
+        c = await start(2, addrs[:2], True)
+        await converge("c", c)
+        wall_c = time.monotonic() - t_b
+        await plane.settle()
         out = {"transport": transport, "rows": rows, "txs": txs,
                "expected_digest": digest(expected),
                "rows_digest": [digest(query(
                    ag, "SELECT id, text FROM tests ORDER BY id"))
                    for ag in agents]}
-        for name, ag in (("b", b), ("c", c)):
-            handle, sub, upd = watched(ag)
-            mat = sorted(tuple(v) for _rid, v in handle.matcher.all_rows())
-            sel = query(ag, NET_QUERY + " ORDER BY id")
-            out[name] = {
-                "sub_digest": digest(mat), "sub_rows": len(mat),
-                "sub_equals_select": mat == sel,
-                "events": dict(sorted(sub.kinds.items())),
-                "updates": dict(sorted(upd.kinds.items())),
-            }
+        for name, ag, since in (("b", b, t0), ("c", c, t_b)):
+            out[name] = await plane.observe(name, ag, since)
         out["array_lane"] = {name: getattr(ag.store, "array_lane", None)
                              for name, ag in zip("abc", agents)}
-        out["canary_seen"] = [None if s is None else dict(s) for s in seen]
-        out["walls"] = {"b_boot_to_converged_s": wall_b,
-                        "c_catch_up_s": wall_c}
+        out["walls"] = {"write_s": write_s,
+                        "b_boot_to_converged_s": t_b - t_boot,
+                        "b_all_rows_s": t_b - t0, "c_catch_up_s": wall_c}
+        await plane.finish(out)
         return out
     finally:
-        for _h, sub, upd in watches.values():
-            await sub.stop()
-            await upd.stop()
+        await plane.close()
         # together: an agent left alone would spend its shutdown trying
         # to tell peers that are already gone
         done = await asyncio.gather(*(api.shutdown(ag) for ag in agents),
@@ -671,40 +714,340 @@ async def scenario_net(api, db_dir: str, transport: str, rows: int = 400,
             raise errors[0]
 
 
-def net_outcome(rec: dict) -> dict:
+async def scenario_net(api, db_dir: str, transport: str, rows: int = 400,
+                       txs: int = 4, timeout: float = 120.0) -> dict:
+    """`_scenario` in process (`_InProcess`): B attaches `NET_QUERY` and
+    the `tests` update handle, A writes through its store, the SLO canary
+    is on.
+
+    Returns, per agent, the rows digest, and for B and C the live query's
+    materialized rows (digest, count), the digest of a SELECT on the
+    agent's store, the live query's event counts per kind, the update
+    handle's, the port's array lane, what each canary saw and the
+    walls."""
+    return await _scenario(api, db_dir, transport, _InProcess(api, rows),
+                           rows, txs, timeout)
+
+
+def _outcome(rec: dict, name: str, keys) -> dict:
+    return {"rows_digest": rec["rows_digest"][0],
+            **{k: rec[name][k] for k in keys}}
+
+
+def net_outcome(rec: dict, name: str = "b") -> dict:
     """The part of a `scenario_net` record that must equal the JAX
-    package's (`chip_smoke.NET_REF`): the same in every run."""
-    return {
-        "rows_digest": rec["rows_digest"][0],
-        "sub_digest": rec["b"]["sub_digest"],
-        "sub_rows": rec["b"]["sub_rows"],
-        "events": rec["b"]["events"],
-        "updates": rec["b"]["updates"],
-    }
+    package's (`chip_smoke.NET_REF`), for watched agent `name`: the same
+    in every run."""
+    return _outcome(rec, name, ("sub_digest", "sub_rows", "events",
+                                "updates"))
 
 
-def net_checks(rec: dict, ref: dict) -> List[str]:
-    """What must hold of a `scenario_net` record against the reference
-    outcome `ref` (`net_outcome` of the JAX package's run)."""
+def _watched_checks(rec: dict, ref: dict, outcome) -> List[str]:
+    """What must hold of either scenario's record against `ref` (the
+    JAX package's `outcome`): every agent's rows, and on B and C the
+    outcome, the stream's rows against the agent's query, one insert
+    event per live-query row and per row, and decided batches."""
     bad = []
     if set(rec["rows_digest"]) != {ref["rows_digest"]}:
         bad.append(f"rows digests {rec['rows_digest']}")
     if rec["expected_digest"] != ref["rows_digest"]:
         bad.append("the reference's rows are not the rows written")
     for name in ("b", "c"):
+        got = outcome(rec, name)
+        for key, want in ref.items():
+            if got[key] != want:
+                bad.append(f"{name}.{key} {got[key]} != {want}")
         got = rec[name]
-        for key in ("sub_digest", "sub_rows", "events", "updates"):
-            if got[key] != ref[key]:
-                bad.append(f"{name}.{key} {got[key]} != {ref[key]}")
-        if not got["sub_equals_select"]:
-            bad.append(f"{name}: live query rows differ from its SELECT")
+        if got["query_digest"] != got["sub_digest"]:
+            bad.append(f"{name}: the live query's rows differ from its query")
         if got["events"].get("insert") != rec["rows"] // 4:
             bad.append(f"{name}: {got['events']} insert events, "
                        f"expected {rec['rows'] // 4}")
+        if got["updates"].get("insert") != rec["rows"]:
+            bad.append(f"{name}: {got['updates']} update events, "
+                       f"expected {rec['rows']}")
         lane = rec["array_lane"][name]
         if lane is not None and lane["decided"] == 0:
             bad.append(f"{name}: array lane {lane}")
+    return bad
+
+
+def net_checks(rec: dict, ref: dict) -> List[str]:
+    """What must hold of a `scenario_net` record against the reference
+    outcome `ref` (`net_outcome` of the JAX package's run)."""
+    bad = _watched_checks(rec, ref, net_outcome)
     seen = rec["canary_seen"]
     if any(s is not None and s["local"] == 0 for s in seen):
         bad.append(f"canary not observed: {seen}")
+    return bad
+
+
+# -- the public API over the socket transports --------------------------------
+
+# GET endpoints of planes the port has not ported yet (ROADMAP §1 item
+# 9.5): their bodies with `actor_id` masked must equal the JAX package's
+# with those planes off
+PLANES_OFF_PATHS = ("/v1/traces", "/v1/alerts", "/v1/remediation",
+                    "/v1/profile")
+# what a stream may end with once its server stops: a clean end or a
+# typed error of the client (`tests/test_chaos.py`'s set, and the h2
+# transport's `StreamReset` for the updates stream, which has no retry)
+RESTART_BUDGET_S = 20.0
+STOP_BUDGET_S = 10.0
+
+
+class _StreamTally:
+    """Consumes one NDJSON stream of the API client (a subscription or
+    table updates) in a task: event counts per kind, the subscription's
+    materialized rows, the first and last change times, and how the
+    stream ended (`end`: "end", or the exception's class name)."""
+
+    def __init__(self, it, typed: tuple):
+        self.typed = typed
+        self.kinds: dict = {}
+        self.rows: dict = {}
+        self.eoq = asyncio.Event()
+        self.first = self.last = None
+        self.end = None
+        self.ended_typed = None
+        self.task = asyncio.ensure_future(self._drain(it))
+
+    def _event(self, kind: str) -> None:
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        self.last = time.monotonic()
+        if self.first is None:
+            self.first = self.last
+
+    async def _drain(self, it) -> None:
+        try:
+            async for ev in it:
+                if "row" in ev:
+                    rowid, values = ev["row"]
+                    self.rows[rowid] = values
+                elif "eoq" in ev:
+                    self.eoq.set()
+                elif "change" in ev:
+                    kind, rowid, values, _cid = ev["change"]
+                    if kind == "delete":
+                        self.rows.pop(rowid, None)
+                    else:
+                        self.rows[rowid] = values
+                    self._event(kind)
+                elif "notify" in ev:
+                    self._event(ev["notify"][0])
+            self.end, self.ended_typed = "end", True
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 — recorded, then judged
+            self.end = type(e).__name__
+            self.ended_typed = isinstance(e, self.typed)
+
+    def materialized(self) -> list:
+        return sorted(tuple(v) for v in self.rows.values())
+
+    def rate(self, since: float) -> float:
+        n = sum(self.kinds.values())
+        return n / (self.last - since) if n and self.last > since else 0.0
+
+    async def stop(self) -> None:
+        self.task.cancel()
+        with contextlib.suppress(asyncio.CancelledError):
+            await self.task
+
+
+async def _get_json(client, path: str):
+    session = await client._ensure()
+    async with session.get(f"{client.base}{path}") as resp:
+        return resp.status, await resp.json()
+
+
+def _masked(body):
+    if isinstance(body, dict) and "actor_id" in body:
+        return {**body, "actor_id": "<actor>"}
+    return body
+
+
+async def _open_streams(api, agent, client, typed) -> tuple:
+    """The subscription on `NET_QUERY` and the `tests` updates stream,
+    both attached on the server before this returns."""
+    sub = _StreamTally(client.subscribe(NET_QUERY).__aiter__(), typed)
+    upd = _StreamTally(client.updates("tests").__aiter__(), typed)
+    await asyncio.wait_for(sub.eoq.wait(), 30.0)
+
+    def updates_attached() -> bool:
+        return any(h.table == "tests" and h.subscriber_count > 0
+                   for h in agent.updates.handles())
+
+    if not await wait_until(updates_attached, timeout=30.0):
+        raise AssertionError(f"{api.name}: the updates stream never attached")
+    return sub, upd
+
+
+def _hpack_codec(client) -> str:
+    """The HPACK encoder's class on `client`'s live h2 connection."""
+    return type(client._session.h2._conn.deflater).__name__
+
+
+class _ThroughApi:
+    """`scenario_api`'s plane: every agent runs an `ApiServer` on
+    `127.0.0.1:0` and every client is the package's h2
+    `CorrosionApiClient`. A's client writes with `/v1/transactions`; B's
+    and C's clients open a `/v1/subscriptions` stream on `NET_QUERY` and a
+    `/v1/updates/tests` stream before their agents run. With `restart`,
+    `finish` stops B's API with both streams live."""
+
+    prefix = "api"
+
+    def __init__(self, api, rows: int, restart: bool):
+        import aiohttp
+
+        self.api, self.rows, self.restart = api, rows, restart
+        self.typed = (aiohttp.ClientError, ConnectionError, api.ClientError,
+                      api.StreamReset)
+        self.servers, self.clients, self.streams = {}, {}, {}
+
+    def tune(self, cfg) -> None:
+        cfg.sync.snapshot = False
+
+    async def attach(self, name: str, agent, watched: bool) -> None:
+        server = self.servers[name] = self.api.ApiServer(agent)
+        agent.config.api.bind_addr = ["127.0.0.1:0"]
+        await server.start()
+        client = self.clients[name] = self.api.CorrosionApiClient(
+            server.addrs[0])
+        if watched:
+            self.streams[name] = await _open_streams(
+                self.api, agent, client, self.typed)
+
+    async def write(self, items) -> None:
+        res = await self.clients["a"].execute([
+            ["INSERT OR REPLACE INTO tests (id, text) VALUES (?, ?)",
+             list(it)] for it in items])
+        if len(res["results"]) != len(items):
+            raise AssertionError(f"{self.api.name}: transaction {res}")
+
+    def complete(self, name: str, agent) -> bool:
+        sub, upd = self.streams[name]
+        return (sub.kinds.get("insert", 0) >= self.rows // 4
+                and upd.kinds.get("insert", 0) >= self.rows
+                and count_rows(agent) == self.rows)
+
+    def state(self, name: str) -> str:
+        sub, upd = self.streams[name]
+        return f"streams {sub.kinds} {upd.kinds} ({sub.end}, {upd.end})"
+
+    async def settle(self) -> None:
+        # the streams' last events may trail the row counts
+        await asyncio.sleep(0.3)
+
+    async def observe(self, name: str, agent, since: float) -> dict:
+        sub, upd = self.streams[name]
+        client = self.clients[name]
+        mat = sub.materialized()
+        got = await client.query_rows([NET_QUERY + " ORDER BY id", []])
+        # the same query over HTTP/1.1 on the same port (the front's byte
+        # pump to aiohttp)
+        h1 = self.api.CorrosionApiClient(self.servers[name].addrs[0],
+                                         http2=False)
+        try:
+            got_h1 = await asyncio.wait_for(
+                h1.query_rows([NET_QUERY + " ORDER BY id", []]), 30.0)
+        finally:
+            await asyncio.wait_for(h1.close(), 10.0)
+        _st, status = await _get_json(client, "/v1/status")
+        planes = {}
+        for path in PLANES_OFF_PATHS:
+            code, body = await _get_json(client, path)
+            planes[path] = [code, _masked(body)]
+        return {
+            "sub_digest": digest(mat), "sub_rows": len(mat),
+            "query_digest": digest([tuple(r) for r in got]),
+            "h1_query_digest": digest([tuple(r) for r in got_h1]),
+            "events": dict(sorted(sub.kinds.items())),
+            "updates": dict(sorted(upd.kinds.items())),
+            "chaos": status["chaos"],
+            "planes_off": planes,
+            "rate_per_s": {"subscription": sub.rate(since),
+                           "updates": upd.rate(since)},
+            "first_event_s": sub.first - since,
+            "hpack_codec": _hpack_codec(client),
+        }
+
+    async def finish(self, out: dict) -> None:
+        out["walls"]["b_first_row_s"] = out["b"]["first_event_s"]
+        if not self.restart:
+            return
+        # B's API stops with both of its streams live; both must end
+        # within one budget counted from the stop
+        t = time.monotonic()
+        await asyncio.wait_for(self.servers["b"].stop(), STOP_BUDGET_S)
+        stop_s = time.monotonic() - t
+        sub, upd = self.streams["b"]
+        await asyncio.wait({sub.task, upd.task},
+                           timeout=max(0.0, RESTART_BUDGET_S - stop_s))
+        out["restart"] = {
+            "stop_s": stop_s, "ended_s": time.monotonic() - t,
+            "subscription": [sub.end, sub.ended_typed],
+            "updates": [upd.end, upd.ended_typed],
+        }
+
+    async def close(self) -> None:
+        for tally in (t for pair in self.streams.values() for t in pair):
+            await tally.stop()
+        for client in self.clients.values():
+            with contextlib.suppress(Exception):
+                await asyncio.wait_for(client.close(), 10.0)
+        for server in self.servers.values():
+            with contextlib.suppress(Exception):
+                await asyncio.wait_for(server.stop(), STOP_BUDGET_S)
+
+
+async def scenario_api(api, db_dir: str, transport: str, rows: int = 400,
+                       txs: int = 4, timeout: float = 120.0,
+                       restart: bool = True) -> dict:
+    """`_scenario` through the public API (`_ThroughApi`). Then, on B and
+    C: the stream's rows, `/v1/queries` over h2 and over HTTP/1.1 on the
+    same port, `/v1/status`'s chaos census, the
+    plane-off endpoints and the HPACK codec the client's connection ran.
+    Last, with `restart`, B's API stops with both streams live (the JAX
+    package's `ApiServer.stop` does not return there: its reference run
+    passes `restart=False`).
+
+    Returns, per watched agent, the outcome `api_outcome` compares, and
+    the array lanes, the restart check and the walls."""
+    return await _scenario(api, db_dir, transport,
+                           _ThroughApi(api, rows, restart), rows, txs,
+                           timeout)
+
+
+def api_outcome(rec: dict, name: str = "b") -> dict:
+    """The part of a `scenario_api` record that must equal the JAX
+    package's (`chip_smoke.API_REF`), for watched agent `name`."""
+    return _outcome(rec, name, ("sub_digest", "sub_rows", "query_digest",
+                                "events", "updates", "chaos", "planes_off"))
+
+
+def api_checks(rec: dict, ref: dict, restart: bool = True) -> List[str]:
+    """What must hold of a `scenario_api` record against `ref`
+    (`api_outcome` of the JAX package's run); `restart`: the record must
+    hold a passed restart check."""
+    bad = _watched_checks(rec, ref, api_outcome)
+    for name in ("b", "c"):
+        got = rec[name]
+        if got["h1_query_digest"] != got["query_digest"]:
+            bad.append(f"{name}: /v1/queries over HTTP/1.1 differs from h2")
+        if got["chaos"]["active"] is not False:
+            bad.append(f"{name}: chaos census {got['chaos']}")
+    rs = rec.get("restart")
+    if rs is None:
+        return bad + ["no restart check in the record"] if restart else bad
+    if rs["stop_s"] > STOP_BUDGET_S:
+        bad.append(f"api.stop() took {rs['stop_s']} s")
+    if rs["ended_s"] > RESTART_BUDGET_S:
+        bad.append(f"restart: the streams took {rs['ended_s']} s to end")
+    for stream in ("subscription", "updates"):
+        end, typed = rs[stream]
+        if end is None or not typed:
+            bad.append(f"restart: {stream} stream ended {end!r} "
+                       f"(typed: {typed}) within {RESTART_BUDGET_S} s")
     return bad

@@ -1,4 +1,7 @@
-"""The public API's payload types (`api/types.py`), which the live-query
-engine writes its events with, and the subscription SQL expansion
-(`api/pubsub_http.py::expand_sql`). The HTTP servers and the client come
-with a later slice of the port."""
+"""The public HTTP API (port's copy of `corrosion_tpu/api/`): the
+aiohttp application and its routes (`http.py`), the dual-protocol front
+that serves HTTP/2 natively and passes HTTP/1.1 through (`h2front.py`),
+the subscription and updates stream handlers (`pubsub_http.py`) and the
+payload types (`types.py`)."""
+
+from corrosion_tpu_torch.api.http import ApiServer

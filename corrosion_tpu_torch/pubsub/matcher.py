@@ -1,7 +1,11 @@
 """The live-query matcher: one materialized, incrementally-maintained
 result set per subscription.
 
-The port's copy of `corrosion_tpu/pubsub/matcher.py`.
+The port's copy of `corrosion_tpu/pubsub/matcher.py`, with one
+difference in shutdown: `close` takes the connection lock, and every
+reader looks at the connection under that lock and raises
+`MatcherError` once it is closed (the JAX module's `close` can close the
+connection under a snapshot running on another thread).
 
 Counterpart of `Matcher`/`MatcherHandle` in `klukai-types/src/pubsub.rs`
 (`Matcher::new` :556-803, run/cmd_loop :1029-1226, handle_candidates
@@ -509,8 +513,6 @@ class Matcher:
         """Materialize the full result into sub.query; returns
         (columns, row_count). Subscribers read rows via `snapshot()` —
         the attach-then-snapshot protocol (pubsub.rs:1029-1060)."""
-        conn = self._conn
-        assert conn is not None
         pk_cols = self._pk_alias_cols()
         ncols = len(self.columns)
         ins_cols = ", ".join(
@@ -519,6 +521,7 @@ class Matcher:
         )
         n = 0
         with self._conn_lock:
+            conn = self._live_conn()
             conn.execute("BEGIN")
             try:
                 for row in conn.execute(self._probe_query()):
@@ -546,12 +549,10 @@ class Matcher:
         """(rows, last_change_id) read atomically under the conn lock —
         no diff can commit between the two, so a subscriber that streams
         these rows then live events > last_change_id misses nothing."""
-        conn = self._conn
-        assert conn is not None
         ncols = len(self.columns)
         sel = ", ".join(f'"col_{i}"' for i in range(ncols))
         with self._conn_lock:
-            rows = conn.execute(
+            rows = self._live_conn().execute(
                 f"SELECT __corro_rowid, {sel} FROM sub.query"
                 " ORDER BY __corro_rowid"
             ).fetchall()
@@ -564,10 +565,9 @@ class Matcher:
         here but not in the live table, and must be re-checked)."""
         from corrosion_tpu_torch.types.pack import pack_columns
 
-        conn = self._conn
-        assert conn is not None
         pks: Set[bytes] = set()
         with self._conn_lock:
+            conn = self._live_conn()
             for ref in self.parsed.tables:
                 if ref.name != table:
                     continue
@@ -613,8 +613,6 @@ class Matcher:
         count equal across table sizes."""
         from corrosion_tpu_torch.runtime.trace import timed_query
 
-        conn = self._conn
-        assert conn is not None
         plans = self._plans
         events: List[SubEvent] = []
         start = time.monotonic()
@@ -624,6 +622,7 @@ class Matcher:
         with self._conn_lock, timed_query(
             "subs batch diff", shape="match:batch"
         ):
+            conn = self._live_conn()
             conn.execute("BEGIN")
             try:
                 for table, pks in candidates.items():
@@ -783,9 +782,8 @@ class Matcher:
 
     def changes_since(self, from_id: int) -> Optional[List[SubEvent]]:
         """Replay the changes log after `from_id`; None if pruned away."""
-        conn = self._conn
-        assert conn is not None
         with self._conn_lock:
+            conn = self._live_conn()
             row = conn.execute("SELECT MIN(id) AS m FROM sub.changes").fetchone()
             min_id = row["m"]
             if min_id is not None and from_id + 1 < min_id:
@@ -807,21 +805,31 @@ class Matcher:
         ]
 
     def prune_log(self) -> int:
-        conn = self._conn
-        assert conn is not None
         with self._conn_lock:
-            cur = conn.execute(
+            cur = self._live_conn().execute(
                 "DELETE FROM sub.changes WHERE id <= "
                 "(SELECT MAX(id) FROM sub.changes) - ?",
                 (CHANGES_LOG_KEEP,),
             )
         return cur.rowcount
 
+    def _live_conn(self) -> sqlite3.Connection:
+        """The sub db connection, read with `_conn_lock` held: a reader
+        on an executor thread can race `close`, and SQLite crashes on a
+        connection closed under it, so a closed matcher raises the
+        engine's typed error instead."""
+        if self._conn is None:
+            raise MatcherError(f"subscription {self.id} is closed")
+        return self._conn
+
     def close(self) -> None:
-        if self._conn is not None:
-            with contextlib.suppress(sqlite3.Error):
-                self._conn.close()
-            self._conn = None
+        # under the lock: a reader holding it finishes first, and every
+        # later reader sees None (`_live_conn`)
+        with self._conn_lock:
+            if self._conn is not None:
+                with contextlib.suppress(sqlite3.Error):
+                    self._conn.close()
+                self._conn = None
 
 
 def _left_to_inner(from_clause: str, alias: str) -> str:

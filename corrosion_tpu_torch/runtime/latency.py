@@ -103,6 +103,19 @@ class LatencyHistogram:
         out.total = self.total
         return out
 
+    def diff(self, earlier: "LatencyHistogram") -> "LatencyHistogram":
+        """self − earlier (a later snapshot minus a prior one of the SAME
+        instrument): exact per-interval isolation without window-slot
+        blur — what the scenario banker uses."""
+        out = LatencyHistogram()
+        for i, c in self.counts.items():
+            d = c - earlier.counts.get(i, 0)
+            if d > 0:
+                out.counts[i] = d
+        out.count = sum(out.counts.values())
+        out.total = max(0.0, self.total - earlier.total)
+        return out
+
     def quantile(self, q: float) -> Optional[float]:
         """Value at quantile q (0..1], reported as the containing
         bucket's upper edge (≤ ~5 % above the true sample)."""
@@ -303,6 +316,12 @@ def stage_hists(
             )
         out[stage] = merged
     return out
+
+
+def snapshot_stages(registry=None) -> Dict[str, LatencyHistogram]:
+    """Cumulative per-stage snapshot, for diffing against a later one
+    (`LatencyHistogram.diff`)."""
+    return stage_hists(window_secs=None, registry=registry)
 
 
 # -- SLO monitor ------------------------------------------------------------

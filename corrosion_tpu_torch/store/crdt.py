@@ -9,7 +9,9 @@ which takes the card when none is named (`runtime/device.py::
 resolve_device`) and raises without CUDA. Only the decision program's
 own decline (an ambiguous value tie, an int out of int32 range) sends a
 batch on to the native and then the Python engine. The chaos hook
-(`self.chaos`) stays None: the fault-injection plane is not ported.
+(`self.chaos`, None by default) takes a `chaos/faults.py::StoreFaults`,
+consulted at the reference's sites: each writer statement, each COMMIT
+and each remote apply.
 
 The reference embeds the cr-sqlite C extension (loaded in
 `klukai-types/src/sqlite.rs:125-143`) to make tables conflict-free. This

@@ -221,6 +221,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + ["chip_smoke"]
+    # the API slice's modules among them
+    assert {f"corrosion_tpu_torch.{m}" for m in (
+        "net.hpack", "net.h2", "chaos.faults", "api.http", "api.h2front",
+        "api.pubsub_http", "client", "pubsub_bench")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
