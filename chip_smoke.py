@@ -251,8 +251,8 @@ non-zero before the result line is printed:
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
 32. `agent_net`, in a child process of its own started after 24.-31.,
-   beside 35.-37., whose host is idle (beside 24.-31. its agents
-   starved), as are 33. and 34.: `agent_checks.scenario_net` at `CHIP_NET` over plaintext
+   beside 36.-38., whose host is idle (beside 24.-31. its agents
+   starved), as are 33., 34. and 35.: `agent_checks.scenario_net` at `CHIP_NET` over plaintext
    QUIC and then over TCP, stores on the card with `array`: agents A and
    B boot on loopback sockets with the SLO canary on and delta sync only;
    B attaches the live query `SELECT id, text FROM tests WHERE id % 4 =
@@ -295,12 +295,37 @@ non-zero before the result line is printed:
    deliver `n_rows` events to each stream. Prints each rung's event
    rate, write rate and wall. Its writes are local commits, which run no
    merge engine: the host's serving plane on the card's machine;
-35. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+35. `agent_planes`: `planes_checks.scenario_planes` at `CHIP_NET` over
+   plaintext QUIC, stores on the card with `array`, every runtime plane
+   on as a default `Config` has them (trace store, TSDB, alerts with
+   remediation, profiler; only their clocks shortened) and OTLP export
+   into an in-process sink: agents A, B and C serve the API, A's h2
+   client writes the 10,000 rows. Then C is cut off from A and B with
+   remediation armed, A writes 200 more rows, and the cut holds until
+   `view-divergence` fires, B's `/v1/alerts?scope=cluster` shows it on A
+   and `targeted-sync` has acted on A and B; after the heal C must hold
+   every row, its catch-up batches decided on the card. Then A's disk
+   fails every statement (`StoreFaults`, the census naming the drill)
+   with remediation observe-only, until `store-faults` fires everywhere,
+   `drain-refuse-bulk` is recorded as `would_act` on every node and a
+   trace is kept for an error. The rows, the episode rules fired per
+   node with their severities, the actuators' outcomes, the divergence
+   episode each node opened during the cut and one incident per episode
+   must equal `PLANES_REF` (the JAX
+   package's run on the CPU); bounded: a kept trace for the sick disk's
+   errors in `/v1/traces`, every node's hotspot block in
+   `/v1/profile?scope=cluster`, a speedscope document, the profiler's
+   overhead under `profile.max_overhead_pct`, every span the exporter
+   counts as sent received by the sink, and every rule input the
+   registry holds sampled by the TSDB. Prints the walls, the profiler's
+   top self-time frames and overhead, the TSDB's sample cost, the array
+   batches per node and the inbox kernel's launches (0: no SWIM tick);
+36. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-36. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+37. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 100 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at ticks 50, 75 and 100; the 14
    event totals at tick 100 from the port's run on the H100 that
@@ -308,11 +333,11 @@ non-zero before the result line is printed:
    prints init s, wall, ms per tick and the peak device memory beside
    the 8.6 GB table (the run to the bar, which does not converge within
    2,000 ticks, is the CLI's);
-37. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+38. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-38. `torch.profiler` must see exactly one device kernel, and no memset,
+39. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -363,7 +388,7 @@ from corrosion_tpu_torch import (
 from corrosion_tpu_torch import agent_checks
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import ingest_bench, native, store_checks, sync_bench
-from corrosion_tpu_torch import pubsub_bench
+from corrosion_tpu_torch import planes_checks, pubsub_bench
 from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
@@ -617,6 +642,30 @@ API_REF = {
                                   "history": []}],
         "/v1/profile": [200, {"enabled": False}],
     },
+}
+
+# The JAX package's `planes_checks.scenario_planes` at `CHIP_NET` over
+# plaintext QUIC on the CPU (`python -m tests.test_torch_planes --ref`):
+# the rows' digest, the episode rules each node fired with their
+# severities, the actuator each drove and whether it reached its outcome
+# (acted while armed, would_act observe-only; C's partition outcome is
+# left out), whether each node opened a divergence episode between the
+# cut and the heal, and whether each episode dumped one incident
+# (`planes_checks.planes_outcome`).
+PLANES_REF = {
+    "rows_digest": "9d790d15cef54f80a0b9e334c7b1912fc329da9291171d486ed0e9516460d1f3",
+    "rows": 10200,
+    "fired": {n: {"view-divergence": "page", "store-faults": "page"}
+              for n in "abc"},
+    "actions": {
+        "a": {"view-divergence": [["targeted-sync"], True],
+              "store-faults": [["drain-refuse-bulk"], True]},
+        "b": {"view-divergence": [["targeted-sync"], True],
+              "store-faults": [["drain-refuse-bulk"], True]},
+        "c": {"store-faults": [["drain-refuse-bulk"], True]},
+    },
+    "episode_opened": {"a": True, "b": True, "c": True},
+    "incident_per_episode": True,
 }
 
 # sha256 of the JAX package's bridge replies to `bridge_scale.wire_replies`
@@ -1760,6 +1809,50 @@ def phase_agent_api(dev) -> dict:
             **_replay_line(dev)}
 
 
+def phase_agent_planes(dev) -> dict:
+    """`scenario_planes` at `CHIP_NET` over plaintext QUIC, stores on the
+    card with `array`, every runtime plane on: the partition's and the
+    sick disk's outcomes equal `PLANES_REF`, and the bounds of
+    `planes_checks` hold (a kept trace for the disk's errors, hotspots
+    from every node, the profiler under its overhead budget, every
+    exported span at the sink, the rules' inputs in the TSDB, C's
+    catch-up decided on the card)."""
+    inbox_cuda.build_inbox.launches = 0
+    with crdt_bench.engine_env("array"), tempfile.TemporaryDirectory(
+            prefix="agent_planes") as tmp:
+        rec = asyncio.run(planes_checks.scenario_planes(
+            agent_checks.port_api(dev), tmp, "quic",
+            **agent_checks.CHIP_NET, timeout=600.0))
+    # the planes run no SWIM tick: the inbox kernel's count stays 0
+    launches = inbox_cuda.build_inbox.launches
+    bad = planes_checks.planes_checks(rec, PLANES_REF)
+    if bad:
+        raise AssertionError(f"agent planes: {bad}")
+    sample = rec["tsdb"]["sample_seconds"]
+    prof = rec["profile"]
+    return {"phase": "agent_planes", "ok": True, "transport": "quic",
+            "rows": rec["rows"], "txs": agent_checks.CHIP_NET["txs"],
+            **rec["walls"],
+            "profile": {"top_self": prof["top_self"][:8],
+                        "overhead_pct": prof["overhead_pct"],
+                        "max_overhead_pct": prof["max_overhead_pct"],
+                        "shed": prof["shed"], "hz": prof["hz"],
+                        "samples": prof["samples"],
+                        "busy_secs_total": prof["busy_secs_total"]},
+            "tsdb": {**rec["tsdb"]["census"], "samples_timed":
+                     sample["count"], "sample_ms_mean":
+                     1e3 * sample["sum"] / max(1.0, sample["count"]),
+                     "never_published": rec["tsdb"]["never_published"]},
+            "fired": rec["fired"], "remediation": rec["remediation"],
+            "episodes": rec["episodes"], "incidents": rec["incidents"],
+            "traces": rec["traces"], "otlp": rec["otlp"],
+            "sick_disk_refused_writes": rec["sick_disk_refused_writes"],
+            "array_batches": {k: _lane_counts(rec["array_lane"][k])
+                              for k in "abc"},
+            "c_catch_up_batches": _lane_counts(rec["c_catch_up_lane"]),
+            "inbox_build_launches": launches, **_replay_line(dev)}
+
+
 # `pubsub_bench.SCALE_RUNGS` this phase runs: 1,000 × 10 shared, 1,000
 # distinct and 10,000 × 10 shared (the 100,000-stream rung is the CLI's)
 PUBSUB_SCALE_RUNGS = pubsub_bench.SCALE_RUNGS[:3]
@@ -1814,8 +1907,10 @@ CHILD_PHASES = ("agent_cluster", "agent_sync_100k_array",
 # cores they starved (on an H100 host a late joiner's catch-up and a
 # connect timed out), so it runs in a process of its own beside the
 # card-bound pview phases that follow them, whose host is idle.
-# `agent_api` and `pubsub_bench` (host-bound serving planes) join it there.
-LATE_CHILD_PHASES = ("agent_net", "agent_api", "pubsub_bench")
+# `agent_api`, `pubsub_bench` and `agent_planes` (host-bound serving
+# planes) join it there.
+LATE_CHILD_PHASES = ("agent_net", "agent_api", "pubsub_bench",
+                     "agent_planes")
 CHILD_PHASE_TIMEOUT_S = 900
 
 
@@ -2440,6 +2535,7 @@ def main() -> int:
         lines[name]["side_by_side_wall_s"] = time.monotonic() - t0
         emit(lines[name])
     paths = {"agent_api": lines["agent_api"]["inbox_build_launches"],
+             "agent_planes": lines["agent_planes"]["inbox_build_launches"],
              "dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"],
              "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],

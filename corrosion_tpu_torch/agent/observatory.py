@@ -34,10 +34,10 @@ comparison is timing-free and stays armed.
 The port's copy of `corrosion_tpu/agent/observatory.py`. The port's
 HTTP API (`api/http.py`) serves `cluster_report` at `GET /v1/cluster`,
 `cluster_alerts` at `GET /v1/alerts?scope=cluster` and
-`cluster_hotspots` at `GET /v1/profile?scope=cluster`. What differs: the
-port has no continuous profiler or alert engine yet (ROADMAP §1 item
-9.5), so a port digest's hotspot and alert blocks are empty
-(`agent.alerts` stays None), as a JAX node's are with those planes off.
+`cluster_hotspots` at `GET /v1/profile?scope=cluster`. A digest carries
+the node's alert engine's `active_summaries` and its profiler's
+`hotspots` (`runtime/alerts.py`, `runtime/profiler.py`); with those
+planes off the blocks are empty, as a JAX node's are.
 """
 
 from __future__ import annotations
@@ -164,10 +164,14 @@ class Observatory:
         eng = getattr(self.agent, "alerts", None)
         alerts = eng.active_summaries() if eng is not None else []
 
-        # r23: the node's top self-time profile frames would ride here;
-        # the port has no profiler, so the block is empty (a JAX node
-        # with `profile.enabled = false` sends the same)
-        hotspots: List[dict] = []
+        # r23: the node's top self-time profile frames ride too — the
+        # cluster-scope hotspot table any node serves.  First tier shed
+        # under the wire-budget ladder (build_and_store): color, not
+        # core.
+        from corrosion_tpu_torch.runtime import profiler as _profiler
+
+        prof = _profiler.get()
+        hotspots = prof.hotspots() if prof is not None else []
 
         with self._lock:
             self._seq += 1

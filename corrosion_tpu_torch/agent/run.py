@@ -19,9 +19,6 @@ The port's copy of `corrosion_tpu/agent/run.py`. What differs:
     (`runtime/device.py::resolve_device`: `cuda:0` when none is named,
     a RuntimeError without CUDA; the CPU only by name). CUDA is
     initialised on the calling thread before any apply worker runs.
-  - The planes that are not ported yet are refused, never skipped: a
-    config that enables one makes `setup` raise NotImplementedError
-    naming the flag (`UNPORTED_PLANES`).
   - With no `network`, the gossip plane binds real sockets as the JAX
     package does: plaintext QUIC (`net/quic.py`) or UDP datagrams plus
     TCP streams, with TLS unless `gossip.plaintext` (`net/tcp.py`,
@@ -32,8 +29,10 @@ The port's copy of `corrosion_tpu/agent/run.py`. What differs:
     engines, `pubsub/`) are built on every agent and fed every
     committed batch; `slo.canary` runs `canary_loop`, which also counts
     what it saw in `agent.canary_seen`. The cluster observatory
-    (`cluster.digests`) and the snapshot catch-up plane
-    (`sync.snapshot`) are built as in the JAX package.
+    (`cluster.digests`), the snapshot catch-up plane (`sync.snapshot`)
+    and the runtime planes (the trace store, the metrics TSDB, the alert
+    engine with its remediation supervisor, the continuous profiler) are
+    built as in the JAX package, so a default `Config` boots.
 """
 
 from __future__ import annotations
@@ -65,6 +64,7 @@ from corrosion_tpu_torch.agent.syncer import serve_sync, sync_loop
 from corrosion_tpu_torch.net.mem import MemNetwork
 from corrosion_tpu_torch.net.tcp import TcpListener, TcpTransport, split_addr
 from corrosion_tpu_torch.net.transport import BiStream
+from corrosion_tpu_torch.runtime import profiler as _rt_profiler
 from corrosion_tpu_torch.runtime.channels import bounded
 from corrosion_tpu_torch.runtime.config import Config
 from corrosion_tpu_torch.runtime.device import resolve_device
@@ -78,31 +78,6 @@ from corrosion_tpu_torch.types.codec import chunked_change_v1, decode_uni_payloa
 from corrosion_tpu_torch.types.rangeset import RangeSet
 
 log = logging.getLogger(__name__)
-
-# (config section, flag, what it builds, the ROADMAP item that brings it):
-# `setup` refuses a config that turns one of them on.
-UNPORTED_PLANES = (
-    ("trace", "enabled", "the tail-sampling trace store",
-     "ROADMAP §1 item 9.5 (runtime planes)"),
-    ("tsdb", "enabled", "the metrics TSDB",
-     "ROADMAP §1 item 9.5 (runtime planes)"),
-    ("alerts", "enabled", "the alert engine and the remediation plane",
-     "ROADMAP §1 item 9.5 (runtime planes)"),
-    ("profile", "enabled", "the continuous profiler",
-     "ROADMAP §1 item 9.5 (runtime planes)"),
-)
-
-
-def refuse_unported(config: Config) -> None:
-    """NotImplementedError for the first plane that `config` turns on
-    and the port does not have."""
-    for section, flag, what, item in UNPORTED_PLANES:
-        if getattr(getattr(config, section), flag):
-            raise NotImplementedError(
-                f"{section}.{flag} = true needs {what}, which is not "
-                f"ported yet ({item}); set {section}.{flag} = false"
-            )
-
 
 def _init_cuda(dev) -> None:
     """Create the CUDA context on the calling thread, so no apply worker
@@ -188,7 +163,6 @@ async def setup(
     tripwire: Optional[Tripwire] = None,
     device=None,
 ) -> Agent:
-    refuse_unported(config)
     if network is None and config.gossip.transport not in ("tcp", "quic"):
         raise ValueError(
             f"unknown gossip.transport {config.gossip.transport!r} "
@@ -336,6 +310,58 @@ async def setup(
         breach_checks=config.slo.breach_checks,
     )
 
+    # tail-based trace capture: stage spans buffer per trace and are
+    # kept only on error / SLO breach / lottery (tracestore.py).
+    # Process-global like the metrics registry: the first agent's config
+    # wins when several share a process
+    if config.trace.enabled:
+        from corrosion_tpu_torch.runtime import tracestore
+
+        tracestore.ensure(
+            targets=config.slo.targets,
+            lottery_n=config.trace.lottery_n,
+            max_traces=config.trace.max_traces,
+            max_spans_per_trace=config.trace.max_spans_per_trace,
+            keep_max=config.trace.keep_max,
+            idle_close_secs=config.trace.idle_close_secs,
+        )
+
+    # alerting plane: the TSDB sampler thread is process-global (first
+    # agent's [tsdb] knobs win); the rule engine is per agent so its
+    # health score reads THIS node's membership LHM and its summaries
+    # ride THIS node's digests
+    if config.tsdb.enabled and config.alerts.enabled:
+        from corrosion_tpu_torch.agent.remediation import RemediationSupervisor
+        from corrosion_tpu_torch.runtime import tsdb as _tsdb
+        from corrosion_tpu_torch.runtime.alerts import AlertEngine
+
+        db = _tsdb.ensure(
+            sample_interval_secs=config.tsdb.sample_interval_secs,
+            slots=config.tsdb.slots,
+            max_series=config.tsdb.max_series,
+        )
+        agent.alerts = AlertEngine(tsdb=db, cfg=config.alerts, agent=agent)
+        # remediation plane: always built beside the alert engine;
+        # [remediation] enabled=false (the default kill switch) keeps it
+        # observe-only (typed "would_act" events, no actions)
+        agent.remediation = RemediationSupervisor(
+            agent, cfg=config.remediation
+        )
+
+    # continuous profiling plane: the wall-clock stack sampler is
+    # process-global like the TSDB (first agent's [profile] knobs win);
+    # the loop thread registers itself in run() so samples carry
+    # subsystem;task prefixes
+    if config.profile.enabled:
+        _rt_profiler.ensure(
+            hz=config.profile.hz,
+            shed_hz=config.profile.shed_hz,
+            max_overhead_pct=config.profile.max_overhead_pct,
+            window_secs=config.profile.window_secs,
+            slots=config.profile.slots,
+            max_stacks=config.profile.max_stacks,
+        )
+
     # r14: local-commit group coalescer (concurrent writers share one
     # sqlite transaction; see GroupCommitter)
     agent.commit_group = GroupCommitter(agent)
@@ -400,6 +426,12 @@ async def run(agent: Agent) -> None:
     async def on_bi(stream: BiStream) -> None:
         await serve_sync(agent, stream)
 
+    # register THIS loop thread with the continuous profiler so its
+    # samples resolve the running asyncio task name (here, on the loop
+    # thread, because the mapping is tid -> loop)
+    _prof = _rt_profiler.get()
+    if _prof is not None:
+        _prof.register_loop_coldpath()
     agent.listener.serve(on_datagram, on_uni, on_bi)
     agent.membership.start(agent.tripwire)
     if agent.subs is not None:
@@ -430,6 +462,16 @@ async def run(agent: Agent) -> None:
         from corrosion_tpu_torch.agent.observatory import observatory_loop
 
         t.spawn(observatory_loop(agent))
+    if agent.alerts is not None:
+        # rule evaluation over the TSDB (pending -> firing -> resolved)
+        from corrosion_tpu_torch.runtime.alerts import alerts_loop
+
+        t.spawn(alerts_loop(agent))
+    if agent.remediation is not None:
+        # the acting half: consume firings, drive actuators
+        from corrosion_tpu_torch.agent.remediation import remediation_loop
+
+        t.spawn(remediation_loop(agent))
     # db maintenance: WAL truncate ladder + incremental vacuum
     # (handlers.rs:379-547) — this is what makes perf.wal_threshold_gb live
     from corrosion_tpu_torch.store.maintenance import vacuum_loop, wal_maintenance_loop
@@ -956,7 +998,21 @@ class GroupCommitter:
                 await self._lead()
             finally:
                 self._release_leadership()
-        return await item.fut
+        res = await item.fut
+        # bank the five-bucket wall attribution when the continuous
+        # profiler is installed (one global None-check otherwise)
+        if _rt_profiler.installed():
+            _rt_profiler.record_write_buckets(
+                enq=item.enq,
+                gate_start=item.gate_start,
+                gate_acq=item.gate_acq,
+                dispatch=item.dispatch,
+                thread_start=item.thread_start,
+                thread_done=item.thread_done,
+                resolved=_time.monotonic(),
+                finalize_secs=item.finalize_secs,
+            )
+        return res
 
     def _release_leadership(self) -> None:
         self._leader = False
@@ -1090,13 +1146,20 @@ class GroupCommitter:
 
         agent = self.agent
         try:
+            from corrosion_tpu_torch.runtime import tracestore
+            from corrosion_tpu_torch.runtime.trace import make_meta
+
+            st = tracestore.store()
             origin_wall = _time.time()
             hook_batches: List[tuple] = []
             inputs: List[BroadcastInput] = []
             for it in committed:
-                # no trace meta: it carries the tail-sampling trace
-                # store's head decision, and that store is not ported
                 trace_meta = None
+                if it.write_span is not None and st is not None:
+                    it.write_span.attrs["table"] = it.changes[0].table
+                    trace_meta = make_meta(
+                        forced=st.head_forced(it.write_span.ctx.trace_id)
+                    )
                 hook_batches.append(
                     (it.changes, it.traceparent, trace_meta)
                 )
@@ -1328,8 +1391,17 @@ async def _make_broadcastable_changes_inner(
         # r19 trace meta: the origin's cached head decision (lottery on
         # the trace id) rides the envelope so every node on the path
         # keeps the same trace without coordination; hop starts at 0
-        # (the trace store that sets it is not ported: see `_fanout`)
         trace_meta = None
+        if write_span is not None:
+            from corrosion_tpu_torch.runtime import tracestore
+            from corrosion_tpu_torch.runtime.trace import make_meta
+
+            st = tracestore.store()
+            if st is not None:
+                write_span.attrs["table"] = changes[0].table
+                trace_meta = make_meta(
+                    forced=st.head_forced(write_span.ctx.trace_id)
+                )
         agent.notify_change_hooks(
             changes, origin_wall, traceparent=traceparent,
             trace_meta=trace_meta,

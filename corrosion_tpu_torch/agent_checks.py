@@ -9,9 +9,12 @@ package's beside them on the CPU with the same seeds.
 
 The configuration is the one of the JAX package's agent tests
 (`tests/test_agent.py::fast_config`: 20 ms broadcasts, 5 ms apply
-window, sync every 0.1-0.5 s, fast SWIM timers) with the planes the port
-does not have yet turned off for both packages (`PLANES_OFF`): a port
-`setup` refuses them, and the same TOML must mean the same thing in both.
+window, sync every 0.1-0.5 s, fast SWIM timers) with the runtime planes
+(trace store, TSDB, alerts, profiler) turned off for both packages
+(`PLANES_OFF`): these scenarios hold timing-free outcomes, and the
+references printed for them (`NET_REF`, `API_REF`) were taken with the
+planes off, the plane-off endpoint bodies among them. The planes' own
+scenario (`scenario_planes`) turns them on.
 The cluster observatory (`cluster.digests`) and the snapshot catch-up
 plane (`sync.snapshot`) stay on, as the reference's defaults have them;
 the SLO canary stays off (its default) unless a scenario turns it on.
@@ -51,8 +54,10 @@ TEST_SCHEMA = (
     "CREATE TABLE tests (id INTEGER NOT NULL PRIMARY KEY, text TEXT);"
 )
 FAST_SWIM = dict(probe_period=0.05, probe_rtt=0.02, suspicion_mult=1.0)
-# (section, flag): planes the port's `setup` refuses (`agent/run.py`
-# `UNPORTED_PLANES`), turned off for both packages
+# (section, flag): the runtime planes, all on by default, turned off for
+# both packages in the scenarios above `scenario_planes` (their
+# references were taken with them off; the planes' samplers and sweeps
+# are process-global threads a timing-free scenario does not need)
 PLANES_OFF = (
     ("trace", "enabled"), ("tsdb", "enabled"), ("alerts", "enabled"),
     ("profile", "enabled"),
@@ -67,11 +72,15 @@ def port_api(device=None) -> SimpleNamespace:
     from corrosion_tpu_torch.agent.membership import SwimConfig
     from corrosion_tpu_torch.agent.syncer import parallel_sync
     from corrosion_tpu_torch.api.http import ApiServer
+    from corrosion_tpu_torch.chaos.faults import CENSUS, StoreFaults
     from corrosion_tpu_torch.client import ClientError, CorrosionApiClient
     from corrosion_tpu_torch.net.h2 import StreamReset
     from corrosion_tpu_torch.net.mem import MemNetwork
+    from corrosion_tpu_torch.net.transport import TransportError
+    from corrosion_tpu_torch.runtime import otel, profiler, tracestore, tsdb
     from corrosion_tpu_torch.runtime.config import Config
     from corrosion_tpu_torch.runtime.metrics import METRICS
+    from corrosion_tpu_torch.runtime.records import FLIGHT
     from corrosion_tpu_torch.sync import held_total
 
     async def setup(config, network=None, tripwire=None):
@@ -86,6 +95,9 @@ def port_api(device=None) -> SimpleNamespace:
         SwimConfig=SwimConfig, held_total=held_total, METRICS=METRICS,
         ApiServer=ApiServer, CorrosionApiClient=CorrosionApiClient,
         ClientError=ClientError, StreamReset=StreamReset,
+        TransportError=TransportError, CENSUS=CENSUS, StoreFaults=StoreFaults,
+        otel=otel, profiler=profiler, tracestore=tracestore, tsdb=tsdb,
+        FLIGHT=FLIGHT,
     )
 
 
@@ -784,9 +796,8 @@ def net_checks(rec: dict, ref: dict) -> List[str]:
 
 # -- the public API over the socket transports --------------------------------
 
-# GET endpoints of planes the port has not ported yet (ROADMAP §1 item
-# 9.5): their bodies with `actor_id` masked must equal the JAX package's
-# with those planes off
+# GET endpoints of the runtime planes: with `PLANES_OFF` their bodies,
+# `actor_id` masked, must equal the JAX package's with those planes off
 PLANES_OFF_PATHS = ("/v1/traces", "/v1/alerts", "/v1/remediation",
                     "/v1/profile")
 # what a stream may end with once its server stops: a clean end or a

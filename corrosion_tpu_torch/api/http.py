@@ -65,10 +65,12 @@ def _held_versions(agent: Agent) -> int:
 
 
 def _trace_census() -> dict:
-    """The /v1/status `traces` block: the JAX package's answer with its
-    tail sampler off. The trace store is not ported yet (ROADMAP §1
-    item 9.5), and `setup` refuses `trace.enabled`."""
-    return {"enabled": False}
+    """The /v1/status `traces` block: tail-sampler occupancy + keep/drop
+    totals (a locked-copy read, poll-safe like the rest of the plane)."""
+    from corrosion_tpu_torch.runtime import tracestore
+
+    st = tracestore.store()
+    return st.census() if st is not None else {"enabled": False}
 
 
 class _Limit:
@@ -87,10 +89,10 @@ class _Limit:
 
 
 def _profile_census() -> dict:
-    """The /v1/status `profile` block: the JAX package's answer with the
-    profiler off. The profiler is not ported yet (ROADMAP §1 item 9.5),
-    and `setup` refuses `profile.enabled`."""
-    return {"enabled": False}
+    from corrosion_tpu_torch.runtime import profiler
+
+    prof = profiler.get()
+    return prof.census() if prof is not None else {"enabled": False}
 
 
 class ApiServer:
@@ -536,15 +538,18 @@ class ApiServer:
             # r20 alerts census: which rules are firing/pending right
             # now and how sick this node judges itself (full lifecycle
             # rows + history live at GET /v1/alerts)
-            # (the alert plane is not ported yet, ROADMAP §1 item 9.5:
-            # the JAX package's block with it off)
-            "alerts": {"enabled": False},
+            "alerts": (
+                agent.alerts.census()
+                if agent.alerts is not None else {"enabled": False}
+            ),
             # r22 remediation census: is the plane armed (vs observe-
             # only) and what it has done (full actuator table + typed
             # action history live at GET /v1/remediation)
-            # (not ported yet, ROADMAP §1 item 9.5: the JAX package's
-            # block with the plane off)
-            "remediation": {"enabled": False},
+            "remediation": (
+                agent.remediation.census()
+                if agent.remediation is not None
+                else {"enabled": False}
+            ),
             # r23 continuous-profiling census: sampler rate/shed state,
             # measured overhead, held windows (flamegraphs live at
             # GET /v1/profile)
@@ -668,11 +673,15 @@ class ApiServer:
         stages = slo.check(window_secs=window)
 
         # r19 exemplars: each stage row names the kept traces whose
-        # worst span of THAT stage is slowest. The trace store is not
-        # ported yet (ROADMAP §1 item 9.5): no trace is kept, as in the
-        # JAX package with its tail sampler off
-        for row in stages.values():
-            row["slowest_trace_ids"] = []
+        # worst span of THAT stage is slowest — the jump from "p99
+        # breached" to "this write, through these nodes"
+        from corrosion_tpu_torch.runtime import tracestore
+
+        st = tracestore.store()
+        for stage, row in stages.items():
+            row["slowest_trace_ids"] = (
+                st.slowest_ids(stage, 3) if st is not None else []
+            )
 
         snap = METRICS.snapshot()
 
@@ -720,13 +729,36 @@ class ApiServer:
         nodes, stalled where".  Filters: `?n=` (default 20),
         `?stage=`, `?actor=`, `?table=`; `?spans=0` drops the
         per-span rows for compact dashboards."""
-        # the trace plane is not ported yet (ROADMAP §1 item 9.5): the
-        # JAX package's answer with its tail sampler off
+        from corrosion_tpu_torch.runtime import tracestore
+
+        st = tracestore.store()
+        if st is None:
+            return web.json_response(
+                {
+                    "actor_id": str(self.agent.actor_id),
+                    "census": {"enabled": False},
+                    "traces": [],
+                }
+            )
+        try:
+            n = int(request.query.get("n", "20"))
+        except ValueError:
+            raise web.HTTPBadRequest(text="n must be an integer")
+        traces = st.kept(
+            n=max(1, min(n, st.keep_max)),
+            stage=request.query.get("stage") or None,
+            actor=request.query.get("actor") or None,
+            table=request.query.get("table") or None,
+        )
+        if request.query.get("spans") == "0":
+            traces = [
+                {k: v for k, v in t.items() if k != "spans"} for t in traces
+            ]
         return web.json_response(
             {
                 "actor_id": str(self.agent.actor_id),
-                "census": {"enabled": False},
-                "traces": [],
+                "census": st.census(),
+                "traces": traces,
             }
         )
 
@@ -747,10 +779,16 @@ class ApiServer:
                          "([cluster] digests=false)"
                 )
             return web.json_response(obs.cluster_alerts())
-        # the alert plane is not ported yet (ROADMAP §1 item 9.5):
-        # `agent.alerts` stays None, and the answer is the JAX package's
-        # with the plane off
-        return web.json_response({"enabled": False, "rules": [], "active": []})
+        eng = self.agent.alerts
+        if eng is None:
+            return web.json_response(
+                {"enabled": False, "rules": [], "active": []}
+            )
+        report = eng.report(
+            history=request.query.get("history") != "0"
+        )
+        report["actor_id"] = str(self.agent.actor_id)
+        return web.json_response(report)
 
     async def h_remediation(self, request: web.Request) -> web.Response:
         """Remediation plane (r22): the actuator census (alert rule →
@@ -758,12 +796,16 @@ class ApiServer:
         the typed action history — every acted / would_act / deferred /
         refused / reverted decision with its wall stamp, drill mark and
         detail.  `?history=0` trims the history."""
-        # the remediation plane is not ported yet (ROADMAP §1 item 9.5):
-        # `agent.remediation` stays None, and the answer is the JAX
-        # package's with the plane off
-        return web.json_response(
-            {"enabled": False, "actuators": [], "history": []}
+        sup = self.agent.remediation
+        if sup is None:
+            return web.json_response(
+                {"enabled": False, "actuators": [], "history": []}
+            )
+        report = sup.report(
+            history=request.query.get("history") != "0"
         )
+        report["actor_id"] = str(self.agent.actor_id)
+        return web.json_response(report)
 
     async def h_profile(self, request: web.Request) -> web.Response:
         """Continuous profiling plane (r23): the always-on wall-clock
@@ -774,6 +816,8 @@ class ApiServer:
         frames, statement-shape table, overhead gauge, census).
         `?scope=cluster` serves the digest-carried per-node hotspot
         rollup — any node answers for the whole cluster."""
+        from corrosion_tpu_torch.runtime import profiler
+
         if request.query.get("scope") == "cluster":
             obs = self.agent.observatory
             if obs is None:
@@ -781,12 +825,25 @@ class ApiServer:
                     text="cluster observatory disabled "
                          "([cluster] digests=false)"
                 )
-            # no profiler runs (ROADMAP §1 item 9.5), so every digest's
-            # hotspot block is empty, as a JAX node's is with it off
             return web.json_response(obs.cluster_hotspots())
-        # the profiler is not ported yet (ROADMAP §1 item 9.5): the JAX
-        # package's answer with it off
-        return web.json_response({"enabled": False})
+        prof = profiler.get()
+        if prof is None:
+            return web.json_response({"enabled": False})
+        try:
+            window = float(request.query.get("window", "60"))
+        except ValueError:
+            raise web.HTTPBadRequest(text="window must be a number")
+        fmt = request.query.get("format", "json")
+        if fmt not in ("json", "folded", "speedscope"):
+            raise web.HTTPBadRequest(
+                text="format must be json|folded|speedscope"
+            )
+        out = prof.export(window_secs=window, fmt=fmt)
+        if fmt == "folded":
+            return web.Response(text=out, content_type="text/plain")
+        if isinstance(out, dict) and fmt == "json":
+            out["actor_id"] = str(self.agent.actor_id)
+        return web.json_response(out)
 
     async def h_cluster(self, request: web.Request) -> web.Response:
         """Cluster observatory plane (r12): the CLUSTER-wide answer any

@@ -1,7 +1,9 @@
-"""The kernel phases of the chaos soak on the card — the port's copy of
-`scripts/chaos_soak.py::kernel_flight_phase` and `flaky_node_phase`.
+"""The kernel phases and the cluster-observatory phase of the chaos soak
+on the card — the port's copy of `scripts/chaos_soak.py`'s
+`kernel_flight_phase`, `flaky_node_phase` and `cluster_obs_phase`.
 
     python -m corrosion_tpu_torch.chaos_soak [--out PATH]
+    python -m corrosion_tpu_torch.chaos_soak --phase cluster
 
 - `kernel_flight_phase`: a pview cluster (n=256, K=64, 2 feeds of 16,
   suspicion 4, fingers seeds) boots through `run_until_converged(400,
@@ -19,21 +21,39 @@ Each phase publishes its frames into a fresh `FlightRecorder`, so
 frames that other sims in the same process left in the global `FLIGHT`
 cannot enter its timeline.
 
-The soak's agent phases (the invariant soak, the SLO baseline, the
-cluster observatory) boot host agents and run no kernel; they are not
-ported. One JSON line is printed; it is written to `--out` only when
-that is given. Run it as a module from the repo root (`-m`).
+- `cluster_obs_phase`: `models/cluster.py::cluster_observatory_scenario`
+  on three port agents under quiet, partition then heal, and churn, each
+  with a fresh `$CORRO_FLIGHT_DIR`: the `cluster_divergence` incident
+  dumps must equal the divergence episodes the agents recorded. With
+  `--phase cluster` it runs alone and its record is written to
+  `CLUSTER_OBS_H100.json` at the repo root (the banked `CLUSTER_OBS.json`
+  is the JAX package's and is never written).
+
+The invariant soak and the SLO baseline (`slo_baseline_phase`, which
+needs the JAX package's `DevCluster`) are not ported (ROADMAP §1 item
+9.6). One JSON line is printed; it is written to `--out` only when that
+is given. Run it as a module from the repo root (`-m`).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import glob
 import json
+import os
+import tempfile
+import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
-from corrosion_tpu_torch.models.cluster import PViewClusterSim, flaky_node_ab
+from corrosion_tpu_torch.models.cluster import (
+    PViewClusterSim,
+    cluster_observatory_scenario,
+    flaky_node_ab,
+)
 from corrosion_tpu_torch.pview_converge import timeline_digest
 from corrosion_tpu_torch.runtime.device import resolve_device
 from corrosion_tpu_torch.runtime.records import FlightRecorder
@@ -146,11 +166,80 @@ def checked(kernel_flight: dict, flaky: dict) -> dict:
     }
 
 
+def cluster_obs_phase(device=None) -> dict:
+    """The cluster-observatory baseline: quiet, partition then heal, and
+    churn on three port agents through the shared scenario harness, whose
+    own checks pin exact cluster aggregation; here each scenario also
+    runs with a fresh `$CORRO_FLIGHT_DIR`, and its `cluster_divergence`
+    incident dumps must equal its divergence episodes (one per episode,
+    none in quiet)."""
+    dev = resolve_device(device)
+    out: dict = {"scenarios": {}}
+    for i, name in enumerate(("quiet", "partition", "churn")):
+        with tempfile.TemporaryDirectory() as flight_dir:
+            old = os.environ.get("CORRO_FLIGHT_DIR")
+            os.environ["CORRO_FLIGHT_DIR"] = flight_dir
+            try:
+                t0 = time.monotonic()
+                timeline: list = []
+                rec = asyncio.new_event_loop().run_until_complete(
+                    asyncio.wait_for(
+                        cluster_observatory_scenario(
+                            name, seed=211 + i, timeline=timeline,
+                            device=dev,
+                        ),
+                        300,
+                    )
+                )
+                rec["wall_s"] = round(time.monotonic() - t0, 1)
+                dumps = len(glob.glob(
+                    os.path.join(flight_dir, "*cluster_divergence*")))
+            finally:
+                if old is None:
+                    os.environ.pop("CORRO_FLIGHT_DIR", None)
+                else:
+                    os.environ["CORRO_FLIGHT_DIR"] = old
+        expected_dumps = rec.get("episodes_total", 0)
+        assert dumps == expected_dumps, (
+            f"cluster obs {name}: {dumps} incident dumps for "
+            f"{expected_dumps} divergence episodes"
+        )
+        rec["incident_dumps"] = dumps
+        rec["timeline"] = timeline[-64:]
+        out["scenarios"][name] = rec
+        msg = f"cluster obs {name}: coverage_rounds={rec['coverage_rounds']}"
+        if "detect_rounds" in rec:
+            msg += (
+                f" detect_rounds={rec['detect_rounds']}"
+                f" ({rec['detect_secs']}s)"
+                f" heal_rounds={rec['heal_rounds']}"
+                f" episodes={rec['episodes_total']} dumps={dumps}"
+            )
+        print(msg, flush=True)
+    return out
+
+
+# the port's cluster-observatory record, beside the JAX package's banked
+# CLUSTER_OBS.json (git-ignored: a card run's output)
+CLUSTER_OBS_OUT = Path(__file__).resolve().parent.parent / "CLUSTER_OBS_H100.json"
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the record to this JSON file")
+    ap.add_argument("--phase", choices=("kernel", "cluster"), default="kernel",
+                    help="kernel: the flight and Lifeguard phases (default); "
+                         "cluster: the observatory phase, written to "
+                         "CLUSTER_OBS_H100.json")
     args = ap.parse_args(argv)
     dev = resolve_device()
+    if args.phase == "cluster":
+        rec = cluster_obs_phase(device=dev)
+        rec["measured_at"] = time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime())
+        with open(args.out or CLUSTER_OBS_OUT, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(json.dumps(rec), flush=True)
+        return rec
     rec = {"kernel_flight": kernel_flight_phase(device=dev),
            "flaky_node": flaky_node_phase(device=dev)}
     if args.out:

@@ -17,7 +17,7 @@ workers and its peers' stores do: every store must still end at its
 rung's digest.
 
 The script's local-write rungs (`_local_write`) boot one agent (the
-JAX package's agent test configuration with the unported planes off,
+JAX package's agent test configuration with the runtime planes off,
 `agent_checks.fast_config`) and drive its public write path,
 `make_broadcastable_changes`: `ingest-local-w{1,4,16}` are 1, 4 and 16
 concurrent writers sharing `TXS_TOTAL` transactions of `ROWS_PER_TX`

@@ -1,7 +1,8 @@
 """Simulation drivers: the counterparts of `corrosion_tpu/models/
 cluster.py`'s `ClusterSim` (the dense tick, `ops.swim`), `PViewClusterSim`
 (the partial-view tick, `ops.swim_pview`) and the Lifeguard A/B harness
-`flaky_node_ab`.
+`flaky_node_ab`; and `cluster_observatory_scenario`, the JAX module's
+agent-level observatory episode on the port's agents.
 
 n members advance as tensor rows, on the card unless `device="cpu"` is
 asked for. The rng chain is the reference's, so a simulation from the
@@ -461,3 +462,273 @@ def flaky_node_ab(
         if lf["detect_ticks"] and v["detect_ticks"] else None
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# r12 cluster-observatory scenario harness (agent-level, mem-net)
+
+
+async def cluster_observatory_scenario(
+    scenario: str,
+    seed: int = 0,
+    nodes: int = 3,
+    writes: int = 12,
+    interval: float = 0.15,
+    batch_wait: float = 0.1,
+    hold_secs: float = 2.5,
+    timeline: Optional[List[dict]] = None,
+    device=None,
+) -> dict:
+    """One cluster-observatory episode on a real in-process devcluster
+    (shared by `scripts/chaos_soak.py --phase cluster`, the obs_report
+    cluster section, and the tier-1 live replica in
+    tests/test_cluster_obs.py).
+
+    Boots `nodes` agents over a mem network with a LONG suspicion
+    window (the realistic regime where a partition is not instantly
+    indistinguishable from a crash), runs a small write→event workload
+    so the gossiped digests carry non-empty stage histograms, waits for
+    full digest coverage on every node, then injects the scenario:
+
+      quiet      — nothing; pins full coverage + exact aggregation
+                   (cluster-merged stage percentiles == the merge of
+                   the per-node /v1/slo cumulative histograms)
+      partition  — the last node is cut from everyone for `hold_secs`,
+                   then healed: the divergence detector must open ONE
+                   episode per observing side within a bounded number
+                   of digest rounds, dump ONE incident per episode, and
+                   clear after heal
+      churn      — the last node is taken down (crash-style silence)
+                   and brought back: same detection surface, but the
+                   episode must ALSO clear once digests flow again
+
+    `timeline`, when given, receives one row per digest round with the
+    first node's divergence gauges — the obs_report render feed.
+
+    The port's agents boot through `agent_checks.boot` (the JAX module
+    takes `boot`, `fast_config` and `wait_until` from its agent tests)
+    with the runtime planes on, as the JAX tests' config has them, their
+    stores' decision program on `device` (None: the card) and their
+    databases in a temporary directory.
+    """
+    import asyncio
+    import contextlib
+    import tempfile
+
+    from corrosion_tpu_torch import agent_checks as ac
+    from corrosion_tpu_torch.agent.membership import SwimConfig
+    from corrosion_tpu_torch.agent.run import make_broadcastable_changes, shutdown
+    from corrosion_tpu_torch.api.http import ApiServer
+    from corrosion_tpu_torch.client import CorrosionApiClient
+    from corrosion_tpu_torch.net.mem import MemNetwork
+    from corrosion_tpu_torch.runtime import latency as lat
+
+    if scenario not in ("quiet", "partition", "churn"):
+        raise ValueError(f"unknown scenario {scenario!r}")
+
+    wait_until = ac.wait_until
+    api = ac.port_api(device)
+    db_dir = tempfile.TemporaryDirectory(prefix="cluster_obs")
+
+    def tune(cfg):
+        for section, flag in ac.PLANES_OFF:
+            setattr(getattr(cfg, section), flag, True)
+        cfg.pubsub.candidate_batch_wait = batch_wait
+        cfg.cluster.digest_interval_secs = interval
+        cfg.cluster.silent_after_mult = 3.0
+        cfg.cluster.divergence_checks = 2
+
+    net = MemNetwork(seed=seed)
+    names = [f"cobs-{seed}-{i}" for i in range(nodes)]
+    agents = []
+    for i, name in enumerate(names):
+        # fast probing, LONG suspicion: the observatory must win the
+        # race against the failure detector's down-eviction
+        ag = await ac.boot(
+            api, net, name, db_dir.name, tuple(names[:i][-2:]), tune=tune,
+            swim=SwimConfig(probe_period=0.05, probe_rtt=0.02,
+                            suspicion_mult=60.0),
+        )
+        agents.append(ag)
+    first, last = agents[0], agents[-1]
+    api = client = it = None
+    out: dict = {"scenario": scenario, "seed": seed, "nodes": nodes,
+                 "digest_interval_secs": interval}
+    try:
+        assert await wait_until(
+            lambda: all(len(a.members) == nodes - 1 for a in agents),
+            timeout=30.0,
+        ), "membership never converged"
+
+        api = ApiServer(first)
+        first.config.api.bind_addr = ["127.0.0.1:0"]
+        await api.start()
+        client = CorrosionApiClient(api.addrs[0])
+        stream = client.subscribe("SELECT id, text FROM tests")
+        it = stream.__aiter__()
+        while True:
+            ev = await asyncio.wait_for(it.__anext__(), 10)
+            if "eoq" in ev:
+                break
+        got = 0
+        for i in range(writes):
+            await make_broadcastable_changes(
+                last,
+                lambda tx, i=i: [tx.execute(
+                    "INSERT OR REPLACE INTO tests (id, text) VALUES (?, ?)",
+                    [i, f"{scenario}-{i}"],
+                )],
+            )
+            while got <= i:
+                ev = await asyncio.wait_for(it.__anext__(), 30)
+                if "change" in ev:
+                    got += 1
+
+        # full digest coverage on EVERY node, timed in digest rounds
+        t0 = time.monotonic()
+        assert await wait_until(
+            lambda: all(
+                len(a.observatory._store) == nodes for a in agents
+            ),
+            timeout=30.0,
+        ), "digest coverage never completed"
+        out["coverage_rounds"] = max(
+            1, int((time.monotonic() - t0) / interval) + 1
+        )
+
+        # the exact-aggregation pin: the shared in-process registry
+        # makes every node's cumulative stage histogram identical, so
+        # once the gossiped digests have caught up with the last sample
+        # the cluster merge must hold exactly nodes × the local counts
+        # and reproduce the local quantiles bucket-for-bucket (merging
+        # k identical histograms scales counts, never quantiles)
+        local = lat.stage_hists(window_secs=None)
+        rep = None
+
+        def merged_caught_up() -> bool:
+            nonlocal rep
+            rep = first.observatory.cluster_report()
+            return all(
+                rep["stages"][s]["count"] == nodes * h.count
+                for s, h in local.items()
+            )
+
+        assert await wait_until(
+            merged_caught_up, timeout=15.0, step=interval
+        ), {s: (rep["stages"][s]["count"], nodes * h.count)
+            for s, h in local.items()}
+        out["coverage"] = rep["coverage"]
+        out["nodes_report"] = rep["nodes"]  # per-node digest roll-up rows
+        assert rep["coverage"]["fresh"] == nodes, rep["coverage"]
+        # the same rows over the wire: GET /v1/cluster on one node
+        import aiohttp
+
+        async with aiohttp.ClientSession() as sess:
+            async with sess.get(
+                f"http://{api.addrs[0]}/v1/cluster"
+            ) as resp:
+                assert resp.status == 200
+                http_rep = await resp.json()
+        assert http_rep["coverage"]["fresh"] == nodes
+        assert len(http_rep["nodes"]) == nodes
+        for stage, h in local.items():
+            assert (
+                http_rep["stages"][stage]["count"] == nodes * h.count
+            ), (stage, http_rep["stages"][stage])
+        for stage, h in local.items():
+            crow = rep["stages"][stage]
+            if h.count == 0:
+                continue
+            for q in lat.QUANTILES:
+                assert crow[lat._qname(q)] == h.quantile(q), (
+                    stage, q, crow, h.quantile(q),
+                )
+        out["stages"] = {
+            s: {k: v for k, v in r.items()}
+            for s, r in rep["stages"].items()
+        }
+        out["divergence_quiet"] = rep["divergence"]["divergent"]
+
+        if scenario == "quiet":
+            assert not rep["divergence"]["episode_open"]
+            return out
+
+        # -- fault injection ------------------------------------------------
+        victim = names[-1]
+        observers = agents[:-1]
+        if scenario == "partition":
+            for name in names[:-1]:
+                net.partition(name, victim)
+        else:  # churn: crash-style silence, then return
+            net.take_down(victim)
+        t0 = time.monotonic()
+
+        async def sample_rounds(pred, cap_s: float) -> Optional[int]:
+            """Poll once per digest round; rows feed `timeline`."""
+            deadline = time.monotonic() + cap_s
+            while time.monotonic() < deadline:
+                if timeline is not None:
+                    d = first.observatory.check_divergence()
+                    timeline.append({
+                        "t": round(time.monotonic() - t0, 2),
+                        "groups": d["groups"],
+                        "silent": len(d["silent"]),
+                        "episode_open": d["episode_open"],
+                    })
+                if pred():
+                    return max(
+                        1, int((time.monotonic() - t0) / interval) + 1
+                    )
+                await asyncio.sleep(interval)
+            return None
+
+        detect = await sample_rounds(
+            lambda: all(a.observatory._episode_open for a in observers),
+            cap_s=30.0,
+        )
+        assert detect is not None, "divergence episode never opened"
+        out["detect_rounds"] = detect
+        out["detect_secs"] = round(time.monotonic() - t0, 2)
+        await asyncio.sleep(max(0.0, hold_secs - (time.monotonic() - t0)))
+
+        # -- heal -----------------------------------------------------------
+        if scenario == "partition":
+            for name in names[:-1]:
+                net.heal(name, victim)
+        else:
+            net.bring_up(victim)
+        t0 = time.monotonic()
+        heal = await sample_rounds(
+            lambda: not any(a.observatory._episode_open for a in agents),
+            cap_s=30.0,
+        )
+        assert heal is not None, "divergence episode never cleared"
+        out["heal_rounds"] = heal
+        out["episodes"] = {
+            names[i]: a.observatory._episodes
+            for i, a in enumerate(agents)
+        }
+        # exactly ONE episode per node that observed the fault
+        for a in observers:
+            assert a.observatory._episodes == 1, out["episodes"]
+        out["episodes_total"] = sum(
+            a.observatory._episodes for a in agents
+        )
+        return out
+    finally:
+        for ag in agents:
+            if ag.observatory is not None:
+                # planned teardown: peers going quiet one by one must
+                # not read as fresh divergence episodes
+                ag.observatory.disarm()
+        if it is not None:
+            with contextlib.suppress(Exception):
+                await it.aclose()
+        if client is not None:
+            await client.close()
+        if api is not None:
+            await api.stop()
+        for ag in agents:
+            await shutdown(ag)
+        with contextlib.suppress(OSError):
+            db_dir.cleanup()

@@ -1,7 +1,6 @@
 """Windowed percentile latency plane: log-bucketed histograms, the
 write→event hop stamps, and the SLO monitor — the port's copy of
-`corrosion_tpu/runtime/latency.py` (without the report helpers, which
-only the unported benches use).
+`corrosion_tpu/runtime/latency.py`.
 
 - `LatencyHistogram`: HDR-style log-bucketed counts (~5 % value
   resolution, 1 µs…1 h span), mergeable (aligned bucket arrays add),
@@ -10,7 +9,7 @@ only the unported benches use).
 - `WindowedLatency`: a ring of slot sub-histograms and a cumulative
   one: percentiles over the last N seconds and since boot, from one
   `observe()` per sample; registered in the metrics `Registry`
-  (`Registry.latency`).
+  (`Registry.latency`), whose windowed `quantiles` the TSDB samples.
 - Hop stamps: `e2e_observe` feeds the `corro.e2e.<stage>.seconds`
   histograms of the write→event path (broadcast, apply, match, deliver,
   total). Cross-node deltas are wall-clock differences between two
@@ -218,6 +217,19 @@ class WindowedLatency:
         with self._lock:
             return self.cumulative.copy()
 
+    def quantiles(
+        self,
+        qs: Sequence[float] = QUANTILES,
+        window_secs: float = DEFAULT_WINDOW_SECS,
+    ) -> Dict[str, Optional[float]]:
+        h = self.window_hist(window_secs)
+        out: Dict[str, Optional[float]] = {
+            _qname(q): h.quantile(q) for q in qs
+        }
+        out["count"] = h.count
+        return out
+
+
 def _qname(q: float) -> str:
     return "p" + format(q * 100, "g").replace(".", "")
 
@@ -322,6 +334,29 @@ def snapshot_stages(registry=None) -> Dict[str, LatencyHistogram]:
     """Cumulative per-stage snapshot, for diffing against a later one
     (`LatencyHistogram.diff`)."""
     return stage_hists(window_secs=None, registry=registry)
+
+
+def stage_report(
+    before: Optional[Dict[str, LatencyHistogram]] = None,
+    window_secs: Optional[float] = None,
+    registry=None,
+) -> Dict[str, dict]:
+    """{stage: {count, p50, p90, p99, p999, mean}} — over the interval
+    since `before` (snapshot diff: exact scenario isolation), else over
+    the sliding window, else cumulative."""
+    now = stage_hists(
+        window_secs=None if before is not None else window_secs,
+        registry=registry,
+    )
+    out: Dict[str, dict] = {}
+    for stage, h in now.items():
+        if before is not None:
+            h = h.diff(before.get(stage, LatencyHistogram()))
+        row = {_qname(q): h.quantile(q) for q in QUANTILES}
+        row["count"] = h.count
+        row["mean"] = (h.total / h.count) if h.count else None
+        out[stage] = row
+    return out
 
 
 # -- SLO monitor ------------------------------------------------------------

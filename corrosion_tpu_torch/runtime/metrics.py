@@ -173,6 +173,13 @@ class Registry:
 
         return self._get(self._latencies, WindowedLatency, name, labels)
 
+    def latency_items(self):
+        """Every latency instrument as (name, labels, instrument) rows,
+        read without minting series (the TSDB's quantile pass)."""
+        with self._lock:
+            items = list(self._latencies.items())
+        return [(n, dict(labels), w) for (n, labels), w in items]
+
     def latency_family(self, name: str):
         """All label sets of one latency series, as (name, labels,
         instrument) rows, read without minting series."""

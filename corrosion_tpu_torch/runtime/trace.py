@@ -19,12 +19,17 @@ stage span as a child of a wire context), and the one-byte trace meta
 of envelope ext v3 (`make_meta`, `meta_hop`, `meta_forced`,
 `bump_hop`).
 
-`timed_query(sql, shape=)` times a store statement and logs it, with
-the `corro_slow_queries_total` counter, when it takes a second or more.
+Every finished span is also routed as the JAX module routes it: a
+stage span (its attributes carry `stage=`) buffers in the tail-sampling
+trace store (`runtime/tracestore.py`) when one is installed, and is
+exported only if its trace is kept; any other span goes to the OTLP
+exporter (`runtime/otel.py`) when one is configured.
 
-Not ported: the tail-sampling trace store (`runtime/tracestore.py`),
-OTLP export (`runtime/otel.py`) and the statement profiler's tap in
-`timed_query` (`runtime/profiler.py`); finished spans go to `SPANS` only.
+`timed_query(sql, shape=)` times a store statement and logs it, with
+the `corro_slow_queries_total` counter, when it takes a second or more;
+with a `shape` it is the statement profiler's tap
+(`runtime/profiler.py::record_stmt`, a no-op until a profiler is
+installed).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
+from corrosion_tpu_torch.runtime import otel
+from corrosion_tpu_torch.runtime import profiler as _profiler
 from corrosion_tpu_torch.runtime.metrics import METRICS
 
 log = logging.getLogger(__name__)
@@ -176,8 +183,9 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _current.set(self.ctx)
-        self._wall = time.time()
         self._start = time.monotonic()
+        self._start_ns = time.time_ns()
+        self._wall = self._start_ns / 1e9
         return self
 
     def __exit__(self, et, e, tb) -> None:
@@ -186,10 +194,42 @@ class Span:
             _current.reset(self._token)
         METRICS.histogram("corro_span_seconds", span=self.name).observe(elapsed)
         if self.ctx.sampled:
+            parent_id = self.parent.span_id if self.parent is not None else None
             SPANS.add(FinishedSpan(
                 self.name, self.attrs, self._wall, elapsed, et is not None,
-                self.ctx.trace_id, self.ctx.span_id,
-                self.parent.span_id if self.parent is not None else None))
+                self.ctx.trace_id, self.ctx.span_id, parent_id))
+            _finish_span(self.name, self.ctx, parent_id, self._start_ns,
+                         self._start_ns + int(elapsed * 1e9), self.attrs,
+                         error=et is not None)
+
+
+def _finish_span(name: str, ctx: SpanContext, parent_span_id: Optional[str],
+                 start_ns: int, end_ns: int, attrs: Dict[str, str],
+                 error: bool = False, forced: bool = False) -> None:
+    """Route one finished span: a stage span buffers in the trace store's
+    per-trace ring when one is installed (exported only if its trace is
+    kept); any other span goes straight to the OTLP exporter when one is
+    configured. Unconfigured, this is two global None-checks."""
+    if attrs.get("stage") is not None:
+        from corrosion_tpu_torch.runtime import tracestore
+
+        store = tracestore.store()
+        if store is not None:
+            store.add_span({
+                "name": name,
+                "trace_id": ctx.trace_id,
+                "span_id": ctx.span_id,
+                "parent_span_id": parent_span_id,
+                "start_ns": start_ns,
+                "end_ns": end_ns,
+                "attrs": attrs,
+                "error": error,
+                "forced": forced,
+            })
+            return
+    if otel.exporter() is not None:
+        otel.record_span(name, ctx.trace_id, ctx.span_id, parent_span_id,
+                         start_ns, end_ns, attrs, error=error)
 
 
 def span(name: str, **attrs) -> Span:
@@ -220,12 +260,16 @@ def stage_span(
     if not ctx.sampled:
         return ctx
     duration_s = max(0.0, duration_s)
+    end_ns = time.time_ns()
+    start_ns = end_ns - int(duration_s * 1e9)
     a = {"stage": stage}
     a.update({k: str(v) for k, v in attrs.items()})
     METRICS.histogram("corro_span_seconds", span=name).observe(duration_s)
-    SPANS.add(FinishedSpan(name, a, time.time() - duration_s, duration_s,
+    SPANS.add(FinishedSpan(name, a, start_ns / 1e9, duration_s,
                            error, ctx.trace_id, ctx.span_id,
                            parent.span_id))
+    _finish_span(name, ctx, parent.span_id, start_ns, end_ns, a,
+                 error=error, forced=forced)
     return ctx
 
 
@@ -245,8 +289,9 @@ SLOW_QUERY_S = 1.0
 class timed_query:
     """Logs any wrapped block slower than 1 s with its SQL (the reference's
     sqlite trace_v2 slow-query hook). `shape` names the statement's class
-    ("apply:batch", a capture-shape key); the reference's statement
-    profiler reads it, which the port does not have yet."""
+    ("apply:batch", a capture-shape key): with a profiler installed every
+    exit feeds `corro.store.stmt.seconds{shape=}` and the /v1/profile
+    statement table."""
 
     def __init__(self, sql: str, shape: Optional[str] = None):
         self.sql = sql
@@ -262,3 +307,5 @@ class timed_query:
         if elapsed >= SLOW_QUERY_S:
             METRICS.counter("corro_slow_queries_total").inc()
             log.warning("slow query (%.3fs): %s", elapsed, self.sql[:500])
+        if self.shape is not None:
+            _profiler.record_stmt(self.shape, elapsed)

@@ -8,9 +8,10 @@ other and to the rows written. Then a mixed cluster: a port agent and a
 JAX agent on one JAX `MemNetwork` replicate each other's writes by
 broadcast and by a late joiner's delta sync, and a JAX agent that asks
 a port agent with the catch-up plane off for a snapshot falls back to
-delta. Database files are opened both ways; `setup` refuses every
-unported plane and an unknown transport, binds loopback sockets when no
-network is given, and takes the card when no device is named.
+delta. Database files are opened both ways; `setup` refuses an unknown
+transport, binds loopback sockets when no network is given, and takes
+the card when no device is named (the runtime planes' own boots are in
+`tests/test_torch_planes.py`).
 
 Every wait is capped and every agent is shut down in a `finally`.
 
@@ -298,18 +299,6 @@ def _bookie(agent):
 
 
 # -- refusals and the default device --------------------------------------------
-
-
-@pytest.mark.parametrize("plane", [f"{s}.{f}" for s, f in ac.PLANES_OFF])
-def test_setup_refuses_each_unported_plane(tmp_path, plane):
-    api = ac.port_api("cpu")
-    net = api.MemNetwork(seed=1)
-    cfg = ac.fast_config(api, "refuse", str(tmp_path))
-    section, flag = plane.split(".")
-    setattr(getattr(cfg, section), flag, True)
-    with pytest.raises(NotImplementedError, match=plane.replace(".", r"\.")):
-        asyncio.run(trun.setup(cfg, network=net, device="cpu"))
-    assert not os.path.exists(cfg.db.path)
 
 
 def test_setup_refuses_a_missing_network(tmp_path):

@@ -17,7 +17,6 @@ from corrosion_tpu.agent import broadcast as jbroadcast
 from corrosion_tpu.agent import ingest as jingest
 from corrosion_tpu.agent import member_store as jms
 from corrosion_tpu.agent import members as jmembers
-from corrosion_tpu.agent import run as jrun
 from corrosion_tpu.agent.handle import ChangeSource as JSource
 from corrosion_tpu.net import mem as jmem
 from corrosion_tpu.runtime import config as jconfig
@@ -640,19 +639,6 @@ def test_membership_additions_are_the_reference(monkeypatch):
     j = asyncio.run(drive(JM, JC, JS, jactor, jbase, jmem))
     t = asyncio.run(drive(TM, TC, TS, tactor, tbase, tmem))
     assert j == t and j[0] and j[4]
-
-
-def test_unported_planes_are_listed_as_the_tests_turn_them_off():
-    assert tuple((s, f) for s, f, _w, _i in trun.UNPORTED_PLANES) == \
-        ac.PLANES_OFF
-    # the reference turns every one of them on by default; the canary,
-    # ported now, is off by default and no longer refused
-    defaults = jconfig.Config()
-    assert [getattr(getattr(defaults, s), f) for s, f in ac.PLANES_OFF] == \
-        [True] * 4
-    assert ("slo", "canary") not in ac.PLANES_OFF
-    assert defaults.slo.canary is False
-    assert jrun is not None
 
 
 def test_concurrent_applies_count_every_batch(tmp_path):

@@ -221,10 +221,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
             for m in mods] + ["chip_smoke"]
-    # the API slice's modules among them
+    # the API slice's modules and the runtime planes' among them
     assert {f"corrosion_tpu_torch.{m}" for m in (
         "net.hpack", "net.h2", "chaos.faults", "api.http", "api.h2front",
         "api.pubsub_http", "client", "pubsub_bench")} <= set(mods)
+    assert {f"corrosion_tpu_torch.{m}" for m in (
+        "runtime.profstore", "runtime.tsdb", "runtime.alerts",
+        "runtime.tracestore", "runtime.otel", "runtime.profiler",
+        "agent.remediation", "planes_checks")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
