@@ -14,8 +14,8 @@ non-zero before the result line is printed:
    finds a library, `sqlite3.sqlite_version`, and the UDP-GSO probe's
    answer (`net/quic.py`'s endpoint over loopback, 256 KiB on one bi
    stream: whether GSO stayed on, its batches, segments and diversions),
-   and the seconds loopback TCP takes for 120,000 bytes in 3,000 writes
-   of 40 B and in 30 writes of 4,000 B;
+   and the seconds loopback TCP takes for 12,000 bytes in 300 writes of
+   40 B and in 3 writes of 4,000 B;
 2. the inbox kernel against its plain PyTorch version on the card, at the
    dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
    at the other shapes of `inbox_bench.SHAPES` (n=10^5, n=10^6 and the
@@ -150,10 +150,11 @@ non-zero before the result line is printed:
    count, false positive and coverage must equal `LADDER_REF`, the JAX
    package's rungs through the same code on the CPU. Wall times are
    printed;
-21.-23. run in this process while the child phases of 24.-31., started
-   just before them, run beside it: the agents leave the card mostly
-   idle for minutes, these three are checked exactly and no bar reads
-   their times (their ms per tick are the card's shared with the
+21. runs in this process while the child phases of 24.-31., started
+   just before it, run beside it, and 22.-23. run in this process beside
+   the late children of 32.-35. and 38.: the agents leave the card
+   mostly idle for minutes, these three are checked exactly and no bar
+   reads their times (their ms per tick are the card's shared with the
    children);
 21. `pview_churn_ref`: `pview_converge.run` (the program of
    `scripts/pview_converge.py`) at n=8,192, K=512, in shift and in pick
@@ -177,7 +178,7 @@ non-zero before the result line is printed:
    programs, one CUDA graph replay per batch, in turn; the churn rung
    keeps the card busy beside them. Printed once all have ended, each
    line with its process's wall (`process_wall_s`) and the wall from
-   their start to there (`side_by_side_wall_s`, 21.-23. included).
+   their start to there (`side_by_side_wall_s`, 21. included).
    `store_ingest_threads` (`ingest_bench.apply_concurrently`, printed
    first): the remote rungs of `store_ingest` under `array` into three
    stores each at once, every store fed in order by a thread of its
@@ -251,10 +252,11 @@ non-zero before the result line is printed:
    the wall of both phases, ms per tick, the stats pass's ms and the
    peak device memory;
 32. `agent_net`, in a child process of its own started after 24.-31.,
-   beside 36.-38., whose host is idle (beside 24.-31. its agents
-   starved), as are 33., 34. and 35.: `agent_checks.scenario_net` at `CHIP_NET` over plaintext
-   QUIC and then over TCP, stores on the card with `array`: agents A and
-   B boot on loopback sockets with the SLO canary on and delta sync only;
+   beside 22.-23. and 39.-40., whose host is idle (beside 24.-31. its
+   agents starved), as are 33.-35. and 38.: `agent_checks.scenario_net` at `CHIP_NET`
+   over plaintext QUIC and then over TCP, stores on the card with
+   `array`: agents A and B boot on loopback sockets with the SLO canary
+   on and delta sync only;
    B attaches the live query `SELECT id, text FROM tests WHERE id % 4 =
    0` and the `tests` update handle; A writes 10,000 seeded rows in 50
    transactions of 200 (cut from 20,000 in 100 for the phase's time);
@@ -290,11 +292,13 @@ non-zero before the result line is printed:
    connections;
 34. `pubsub_bench`: `pubsub_bench.main` over the `--all` grid (rows
    {5k, 20k, 80k} × 1 subscription, 5k × {1, 16, 128} shared, 5k × 16
-   distinct) and `streams_rung` at 1,000 × 10 shared, 1,000 distinct and
-   10,000 × 10 shared streams, each on one port agent: every rung must
-   deliver `n_rows` events to each stream. Prints each rung's event
-   rate, write rate and wall. Its writes are local commits, which run no
-   merge engine: the host's serving plane on the card's machine;
+   distinct), each on one port agent: every rung must deliver `n_rows`
+   events to each stream. Prints each rung's event rate, write rate and
+   wall. Its writes are local commits, which run no merge engine: the
+   host's serving plane on the card's machine; `pubsub_scale`, a child
+   of its own: `streams_rung` at 1,000 × 10 shared, 1,000 distinct and
+   10,000 × 10 shared streams, every stream receiving its events and the
+   over-limit probe refused with the typed 503;
 35. `agent_planes`: `planes_checks.scenario_planes` at `CHIP_NET` over
    plaintext QUIC, stores on the card with `array`, every runtime plane
    on as a default `Config` has them (trace store, TSDB, alerts with
@@ -320,12 +324,46 @@ non-zero before the result line is printed:
    registry holds sampled by the TSDB. Prints the walls, the profiler's
    top self-time frames and overhead, the TSDB's sample cost, the array
    batches per node and the inbox kernel's launches (0: no SWIM tick);
-36. `pview_churn_25k`: `pview_converge.run(25_000, 512)` in shift (250
+36.-37. run in child processes of their own, started before 8. and
+   collected after 16., beside the CRDT, store and bridge phases, which
+   keep only this process busy (beside the late group the matrix's
+   sick disk raised its alert too late: the TSDB sampler starved);
+   their lines print after 16.
+36. `agent_cli`: `cli_checks.scenario_cli` at `CHIP_CLI`: a
+   `ProcessCluster` (`A -> C`, `B -> C`) of three `python -m
+   corrosion_tpu_torch agent` processes on the card with `array`, driven
+   only by the port's CLI as subprocesses: 10,000 rows by 5 `exec` calls
+   of 40 INSERTs, `query` on A, B and C, `cluster members` and
+   `membership-states`, `sync generate`, `subs list`, `locks`, a
+   `template` render, `backup` on A and `restore` into a fresh path;
+   then A stops, `snapshot dump` of its database, 100 more rows on B, and
+   a fourth node D by `snapshot install` and `agent --from-snapshot`
+   that catches up by sync. The row digests, member counts, template
+   bytes, first query lines and the snapshot reports must equal
+   `CLI_REF` (the JAX package's CLI on the CPU), and every agent process
+   must hold a context on the card (`cli_checks.device_holders`: a
+   `/dev/nvidia<N>` file open and `/dev/nvidia-uvm` mapped, calibrated
+   first on a probe process that has only counted the cards and then
+   made a context) and must not have loaded the inbox kernel's library
+   (so it made no launch: the agent processes' count, 0, is that). Then
+   `scale_ladder.rung0` (three in-process agents over `DevCluster`,
+   default SWIM) with FP 0 and no inbox launch in this process. Prints
+   the walls, the card holders, the probe and rung 0's record;
+37. `traffic_sim`: `traffic_sim.run_matrix(tiny=False)`, the full
+   matrix (4 nodes, 8 scenarios of 6 s, observe-only), stores on the
+   card with `array`: every scenario passes `_assert_bars` (zero op
+   timeouts, availability floors, recovery under the cap, zero
+   divergence at close, the typed alerts and their profiles), the ids
+   are `TRAFFIC_SCENARIOS`, churn-storm and zombie-node decided batches
+   on the card, and the inbox kernel made no launch. Prints per scenario
+   the availability, timeouts, events, recovery s and array lane;
+38. `pview_churn_25k` (a late child): `pview_converge.run(25_000, 512)`
+   in shift (250
    crashed) must equal `PVIEW_CHURN_25K_REF` at every check (the six
    stats) and at each end (ticks, event totals, timeline), the JAX
    package's program on the CPU: the churn path's witness between 8,192
    and the 100,000 rung, which has no reference;
-37. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
+39. `pview_boot_1m`: `pview_converge.run(1_048_576, 2048,
    skip_churn=True)` to tick 100 must equal `PVIEW_1M_REF` (the JAX
    package's program there: six stats at ticks 50, 75 and 100; the 14
    event totals at tick 100 from the port's run on the H100 that
@@ -333,11 +371,11 @@ non-zero before the result line is printed:
    prints init s, wall, ms per tick and the peak device memory beside
    the 8.6 GB table (the run to the bar, which does not converge within
    2,000 ticks, is the CLI's);
-38. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
+40. `pview_profile`: `pview_profile.run` at 16,384 x 512 with three
    calls per row: every phase row (the Hopper kernel's `inbox[cuda]`
    among them) and the memory ladder's row in both tick modes must come
    back with finite times and peaks;
-39. `torch.profiler` must see exactly one device kernel, and no memset,
+41. `torch.profiler` must see exactly one device kernel, and no memset,
    in one `build_inbox` call (after the slice phases, so that no
    profiling precedes their clocks; in a fresh process, with the times
    per shape: `fresh_kernel_measurements`); then the kernels line: per
@@ -355,6 +393,11 @@ non-zero before the result line is printed:
 Before the kernels line, a `walls` line: the script's wall to there and
 the kernels phase's, beside the 1,200 s limit. The last line is
 `{"ok": true, "device": {"platform": "gpu", ...}}`.
+
+`python3 chip_smoke.py --window-ab` runs only the build and the phases
+that share their window with 36.-37. (`WINDOW_PHASES`), first alone and
+then beside those two children, each line tagged `window`: the host
+load's effect on their host-clock readings, within one call.
 """
 
 from __future__ import annotations
@@ -388,7 +431,8 @@ from corrosion_tpu_torch import (
 from corrosion_tpu_torch import agent_checks
 from corrosion_tpu_torch import inbox_bench as ib
 from corrosion_tpu_torch import ingest_bench, native, store_checks, sync_bench
-from corrosion_tpu_torch import planes_checks, pubsub_bench
+from corrosion_tpu_torch import cli_checks, planes_checks, pubsub_bench
+from corrosion_tpu_torch import traffic_sim
 from corrosion_tpu_torch import pview_converge as pc
 from corrosion_tpu_torch import random as jr
 from corrosion_tpu_torch.bench import PVIEW_N, bench_params, pview_params
@@ -666,6 +710,35 @@ PLANES_REF = {
     },
     "episode_opened": {"a": True, "b": True, "c": True},
     "incident_per_episode": True,
+}
+
+# The JAX package's CLI on the CPU at `cli_checks.CHIP_CLI` (`python -m
+# tests.test_torch_cli`): `cli_checks.cli_outcome` of `scenario_cli` run
+# with `python -m corrosion_tpu` agents and commands.
+CLI_REF = {
+    "rows": 10000,
+    "extra": 100,
+    "statements": 200,
+    "exec_calls": 5,
+    "rows_affected": 10000,
+    "digests": {n: "4b8e01331603fd8c" for n in "ABC"},
+    "lines": {"A": 10000, "B": 10000, "C": 10000},
+    "first_lines": ["1|r1", "2|r2", "3|r3"],
+    "columns_head": ["id|text", "1|r1", "2|r2"],
+    "members": {"A": 2, "B": 2, "C": 2},
+    "membership_states": 3,
+    "sync_generate_keys": ["actor_id", "heads", "need", "partial_need"],
+    "subs": 0,
+    "locks_answered": True,
+    "template_sha": "f73b11c1ccbb2a19",
+    "template_lines": 103,
+    "restored_digest": "4b8e01331603fd8c",
+    "snapshot_dump": "5 watermark versions, schema sha 04e655171bc9",
+    "snapshot_install": ("5 watermark versions"
+                         " (delta sync tops up from there)"),
+    "final_digests": {n: "4f7d8cf4e70d9c0b" for n in "BCD"},
+    "final_lines": {"B": 10100, "C": 10100, "D": 10100},
+    "d_self_id": "00000000-0000-4000-8000-00000000000d",
 }
 
 # sha256 of the JAX package's bridge replies to `bridge_scale.wire_replies`
@@ -1012,7 +1085,7 @@ async def _loopback_writes(n: int, size: int) -> float:
 
 def phase_host() -> dict:
     """What the card's host has for the API slice and the QUIC stack, and
-    what its loopback TCP charges for the same 120,000 bytes in small and
+    what its loopback TCP charges for the same 12,000 bytes in small and
     in large writes (the API writes each stream event as one write)."""
     import ctypes.util
     import sqlite3
@@ -1022,9 +1095,11 @@ def phase_host() -> dict:
             "libnghttp2": ctypes.util.find_library("nghttp2"),
             "sqlite_version": sqlite3.sqlite_version,
             "udp_gso": asyncio.run(_gso_probe()),
+            # 12,000 B each way: one machine of the card's kind charged
+            # 48 ms per small write (3,000 of them took 144.86 s)
             "loopback_s": {
-                "3000x40B": asyncio.run(_loopback_writes(3000, 40)),
-                "30x4000B": asyncio.run(_loopback_writes(30, 4000))}}
+                "300x40B": asyncio.run(_loopback_writes(300, 40)),
+                "3x4000B": asyncio.run(_loopback_writes(3, 4000))}}
 
 
 def phase_inbox_kernel(dev) -> dict:
@@ -1859,12 +1934,10 @@ PUBSUB_SCALE_RUNGS = pubsub_bench.SCALE_RUNGS[:3]
 
 
 def phase_pubsub_bench(dev) -> dict:
-    """`pubsub_bench`'s `--all` grid and three SUBS_SCALE rungs, each on
-    one port agent whose store opens on the card: every rung must
-    deliver `n_rows` events to each of its streams (the ladder's
-    over-limit probe answered with the typed 503). Local commits run no
-    merge engine: this is the host's serving plane on the card's
-    machine."""
+    """`pubsub_bench`'s `--all` grid, each rung on one port agent whose
+    store opens on the card: every rung must deliver `n_rows` events to
+    each of its streams. Local commits run no merge engine: this is the
+    host's serving plane on the card's machine."""
     rungs = []
     for n_rows, batch, n_subs, distinct in pubsub_bench.ALL_RUNGS:
         rec = asyncio.run(pubsub_bench.main(n_rows, batch, n_subs,
@@ -1875,6 +1948,15 @@ def phase_pubsub_bench(dev) -> dict:
         rungs.append({k: rec[k] for k in (
             "rung", "events_delivered", "event_rate_per_s",
             "write_rate_per_s", "write_wall_s", "total_wall_s")})
+    return {"phase": "pubsub_bench", "ok": True, "rungs": rungs}
+
+
+def phase_pubsub_scale(dev) -> dict:
+    """Three SUBS_SCALE rungs of `pubsub_bench` (`PUBSUB_SCALE_RUNGS`),
+    each on one port agent whose store opens on the card: every stream
+    must receive its events and the ladder's over-limit probe must be
+    answered with the typed 503."""
+    rungs = []
     for n_streams, n_queries, n_rows, distinct in PUBSUB_SCALE_RUNGS:
         rec = asyncio.run(pubsub_bench.streams_rung(
             n_streams, n_queries, n_rows, distinct=distinct, device=dev))
@@ -1887,7 +1969,172 @@ def phase_pubsub_bench(dev) -> dict:
                 "write_wall_s", "setup_wall_s", "total_wall_s",
                 "deliver_p99_s", "matchers")},
             "write_rate_per_s": n_rows / rec["write_wall_s"]})
-    return {"phase": "pubsub_bench", "ok": True, "rungs": rungs}
+    return {"phase": "pubsub_scale", "ok": True, "rungs": rungs}
+
+
+# a process that counts the cards (`cuInit`), then makes a context;
+# it waits for a line on stdin after each step
+CARD_PROBE = """import sys, torch
+torch.cuda.device_count()
+print("counted", flush=True)
+sys.stdin.readline()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+print("context", flush=True)
+sys.stdin.readline()
+"""
+
+
+def card_probe() -> dict:
+    """`cli_checks.device_holders` calibrated on this host: a process
+    that has only counted the cards must read as holding no context, and
+    the same process once it made one must read as holding it."""
+    proc = subprocess.Popen([sys.executable, "-c", CARD_PROBE],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
+    seen = {}
+    try:
+        for step in ("counted", "context"):
+            line = proc.stdout.readline().strip()
+            if line != step:
+                raise AssertionError(f"card probe: {line!r} at {step}")
+            seen[step] = cli_checks.device_holders({"p": proc.pid})["p"]
+            proc.stdin.write("\n")
+            proc.stdin.flush()
+        proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if seen["counted"]["context"] or not seen["context"]["context"]:
+        raise AssertionError(f"card probe: the holder check does not tell "
+                             f"a context from cuInit here: {seen}")
+    return {step: {k: h[k] for k in ("device_files", "mapped")}
+            for step, h in seen.items()}
+
+
+def phase_agent_cli(dev) -> dict:
+    """`cli_checks.scenario_cli` at `CHIP_CLI`: three `python -m
+    corrosion_tpu_torch agent` processes on the card (no `--device`:
+    their default), stores deciding with `array`, driven only through the
+    port's CLI (10,000 rows by `exec`, `query`, the admin commands,
+    `template`, `backup` and `restore`, then `snapshot dump`, `snapshot
+    install` and `agent --from-snapshot` for a fourth node): the outcome
+    must equal `CLI_REF`, and every agent process must hold a context on
+    the card and must not have loaded the inbox kernel's library
+    (`device_holders`, calibrated by `card_probe`; read from each
+    process's `/proc`, A before it stops, B, C and D after D caught up),
+    so each made 0 inbox launches. Then `scale_ladder.rung0` (three
+    in-process agents over `DevCluster`, default SWIM) in this process:
+    full membership, every broadcast landed, FP 0 and no inbox launch
+    (`build_inbox.launches`, set to 0 just before)."""
+    probe = card_probe()
+    with crdt_bench.engine_env("array"), tempfile.TemporaryDirectory(
+            prefix="agent_cli") as tmp:
+        rec = cli_checks.scenario_cli(cli_checks.port_api(), tmp,
+                                      **cli_checks.CHIP_CLI, timeout=600.0)
+    bad = cli_checks.cli_checks(rec, CLI_REF)
+    holders = rec["device_holders"]
+    off_card = [n for n, h in holders.items() if not h["context"]]
+    if off_card:
+        bad.append(f"agents without a context on the card: {off_card}")
+    loaded = {n: h["libs_loaded"] for n, h in holders.items()
+              if h["libs_loaded"]}
+    if loaded:
+        bad.append(f"agents loaded kernel libraries (launches unread): "
+                   f"{loaded}")
+    if bad:
+        raise AssertionError(f"agent cli: {bad}")
+    t0 = time.monotonic()
+    inbox_cuda.build_inbox.launches = 0
+    with crdt_bench.engine_env("array"):
+        (rung0,) = scale_ladder.rung0(dev)
+    rung0_launches = inbox_cuda.build_inbox.launches
+    if rung0["false_positive"] != 0.0 or rung0_launches:
+        raise AssertionError(f"ladder rung 0: {rung0}, "
+                             f"{rung0_launches} inbox launches")
+    by_process = {n: 0 for n in holders}
+    return {"phase": "agent_cli", "ok": True,
+            "rows": rec["rows"], "statements": rec["statements"],
+            "exec_calls": rec["exec_calls"], **rec["walls"],
+            "card_probe": probe, "device_holders": holders,
+            "rung0": {**rung0, "wall_s": time.monotonic() - t0},
+            "inbox_build_launches_by_process": {
+                **by_process, "rung0": rung0_launches},
+            "inbox_build_launches": sum(by_process.values())
+            + rung0_launches}
+
+
+# `TRAFFIC_SIM.json`'s scenario ids, the full matrix's (the JAX package's
+# banked run; `tests/test_torch_traffic.py` holds them equal)
+TRAFFIC_SCENARIOS = ("baseline", "geo-latency", "asym-partition",
+                     "flap-storm", "churn-storm", "zombie-node", "slow-disk",
+                     "sick-disk")
+
+
+def phase_traffic_sim(dev) -> dict:
+    """`traffic_sim.run_matrix(tiny=False)`, the full matrix the script
+    banks (4 nodes, 8 scenarios of 6 s, observe-only), the stores on the
+    card with `array`: every scenario passes `_assert_bars(rec,
+    tiny=False)` inside the run (zero op timeouts, the availability
+    floors, recovery under the cap, zero divergence at close), the ids
+    are `TRAFFIC_SCENARIOS`, the churn-storm and zombie-node scenarios
+    decided batches on the card (each scenario's array-lane delta per
+    node, read around `run_scenario`), and the inbox kernel made no
+    launch."""
+    inbox_cuda.build_inbox.launches = 0
+    lanes: dict = {}
+    orig = traffic_sim.TrafficSim.run_scenario
+
+    async def run_scenario(self, sid, injections):
+        before = {n: (node.agent.store, dict(node.agent.store.array_lane))
+                  for n, node in self.nodes.items() if node.agent}
+        rec = await orig(self, sid, injections)
+        lanes[sid] = {}
+        for n, node in self.nodes.items():
+            if node.agent is None:
+                continue
+            store = node.agent.store
+            old, base = before.get(n, (None, {}))
+            if old is not store:  # restarted: a new store's whole lane
+                base = {}
+            lanes[sid][n] = [store.array_lane[k] - base.get(k, 0)
+                             for k in ("decided", "declined")]
+        return rec
+
+    traffic_sim.TrafficSim.run_scenario = run_scenario
+    try:
+        with crdt_bench.engine_env("array"):
+            rec = asyncio.run(traffic_sim.run_matrix(False, device=dev))
+    finally:
+        traffic_sim.TrafficSim.run_scenario = orig
+    ids = tuple(r["scenario"] for r in rec["scenarios"])
+    if ids != TRAFFIC_SCENARIOS:
+        raise AssertionError(f"traffic sim scenarios: {ids}")
+    for sid in ("churn-storm", "zombie-node"):
+        if not any(d for d, _ in lanes[sid].values()):
+            raise AssertionError(f"traffic sim {sid}: nothing decided on "
+                                 f"the card: {lanes[sid]}")
+    launches = inbox_cuda.build_inbox.launches
+    if launches:
+        raise AssertionError(f"traffic sim: {launches} inbox launches")
+    return {"phase": "traffic_sim", "ok": True, "nodes": rec["nodes"],
+            "duration_per_scenario_secs": rec["duration_per_scenario_secs"],
+            "wall_s": rec["wall_secs"],
+            "scenarios": [{
+                "scenario": r["scenario"],
+                "availability": {st: r["stages"][st]["availability"]
+                                 for st in ("write", "query")},
+                "timeouts": sum(v["timeouts"]
+                                for v in r["stages"].values()),
+                "events": r["events_delivered"],
+                "recovery_s": r["recovery"]["secs"],
+                "array_lane": lanes[r["scenario"]],
+                **({"alert": {k: r["alerts"][k] for k in (
+                    "expected", "raised", "resolved")}}
+                   if "alerts" in r else {}),
+            } for r in rec["scenarios"]],
+            "inbox_build_launches": launches, **_replay_line(dev)}
 
 
 # The agent phases and the threaded store check, each in a process of
@@ -1907,10 +2154,17 @@ CHILD_PHASES = ("agent_cluster", "agent_sync_100k_array",
 # cores they starved (on an H100 host a late joiner's catch-up and a
 # connect timed out), so it runs in a process of its own beside the
 # card-bound pview phases that follow them, whose host is idle.
-# `agent_api`, `pubsub_bench` and `agent_planes` (host-bound serving
-# planes) join it there.
+# `agent_api`, `pubsub_bench`, `pubsub_scale` and `agent_planes`
+# (host-bound serving planes) join it there, and `pview_churn_25k`,
+# whose 200 s in this process set the group's wall, while this process
+# runs the shorter pview phases.
 LATE_CHILD_PHASES = ("agent_net", "agent_api", "pubsub_bench",
-                     "agent_planes")
+                     "pubsub_scale", "agent_planes", "pview_churn_25k")
+# The operator surface and the chaos matrix, host-bound as the late
+# children are, run beside the CRDT, store and bridge phases, where this
+# process alone keeps the host busy (beside the late group the matrix's
+# sick disk raised no alert in time: its TSDB sampler starved).
+EARLY_CHILD_PHASES = ("agent_cli", "traffic_sim")
 CHILD_PHASE_TIMEOUT_S = 900
 
 
@@ -2470,15 +2724,60 @@ def timed(fn, *args):
     return out
 
 
+# the phases of this process that run beside `EARLY_CHILD_PHASES`
+WINDOW_PHASES = ("crdt_parity", "crdt_slice", "store_parity", "store_flood",
+                 "store_ingest", "store_replicas", "bridge_wire",
+                 "bridge_silent", "bridge_scale")
+
+
+def early_window(dev, **tag) -> dict:
+    """`WINDOW_PHASES` in this process beside the early children; every
+    line gains `tag`; returns the children's lines."""
+    t0 = time.monotonic()
+    with phase_children(EARLY_CHILD_PHASES) as early_children:
+        for name in WINDOW_PHASES:
+            emit({**timed(globals()[f"phase_{name}"], dev), **tag})
+        early = early_children()
+    for name in EARLY_CHILD_PHASES:
+        early[name]["side_by_side_wall_s"] = time.monotonic() - t0
+        emit({**early[name], **tag})
+    return early
+
+
+def window_ab(dev) -> None:
+    """`--window-ab`: `WINDOW_PHASES` alone (in a child process: their
+    checks count the copies of a process's first batches), then beside
+    the early children in this process, each line tagged `window`
+    (`alone`, `beside_early_children`): what the children's host load
+    does to those phases' host-clock readings."""
+    emit(timed(phase_build))
+    alone = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--window-alone"],
+        stdout=subprocess.PIPE, text=True)
+    print(alone.stdout, end="", flush=True)
+    if alone.returncode:
+        raise AssertionError(f"--window-alone: exit {alone.returncode}")
+    early_window(dev, window="beside_early_children")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
     if sys.argv[1:2] == ["--child-phase"]:
-        if sys.argv[2] not in CHILD_PHASES + LATE_CHILD_PHASES:
+        if sys.argv[2] not in (CHILD_PHASES + LATE_CHILD_PHASES
+                               + EARLY_CHILD_PHASES):
             raise SystemExit(f"unknown child phase {sys.argv[2]!r}")
         emit(timed(globals()[f"phase_{sys.argv[2]}"], dev))
+        return 0
+    if sys.argv[1:2] == ["--window-ab"]:
+        window_ab(dev)
+        return 0
+    if sys.argv[1:2] == ["--window-alone"]:
+        for name in WINDOW_PHASES:
+            emit({**timed(globals()[f"phase_{name}"], dev),
+                  "window": "alone"})
         return 0
     t_start = time.monotonic()
     emit(timed(phase_build))
@@ -2494,15 +2793,7 @@ def main() -> int:
     pview_pick = timed(phase_pview_slice, dev, "pick")
     emit(pview_pick)
     emit(timed(phase_pview_slice, dev, "shift"))
-    emit(timed(phase_crdt_parity, dev))
-    emit(timed(phase_crdt_slice, dev))
-    emit(timed(phase_store_parity, dev))
-    emit(timed(phase_store_flood, dev))
-    emit(timed(phase_store_ingest, dev))
-    emit(timed(phase_store_replicas, dev))
-    emit(timed(phase_bridge_wire, dev))
-    emit(timed(phase_bridge_silent, dev))
-    emit(timed(phase_bridge_scale, dev))
+    early = early_window(dev)
     dense_ref, ref_case = timed(phase_dense_ref, dev)
     emit(dense_ref)
     dense_100k_pick, case_100k = timed(phase_dense_100k_pick, dev)
@@ -2510,15 +2801,13 @@ def main() -> int:
     emit(timed(phase_dense_100k_shift, dev))
     emit(timed(phase_ladder, dev))
     # the children's host-bound agents leave the card mostly idle for
-    # minutes: three pview phases, whose checks are exact and whose
-    # times no bar reads, run here meanwhile (not the dense phases: the
-    # north star's wall is read alone)
+    # minutes: a pview phase, whose checks are exact and whose times no
+    # bar reads, runs here meanwhile (not the dense phases: the north
+    # star's wall is read alone)
     t0 = time.monotonic()
     with phase_children() as children:
         churn_ref, case_churn = timed(phase_pview_churn_ref, dev)
         emit(churn_ref)
-        emit(timed(phase_pview_smoke, dev))
-        emit(timed(phase_pview_flight, dev))
         lines = _agent_lines(children())
     side_by_side = time.monotonic() - t0
     for line in lines:
@@ -2527,7 +2816,8 @@ def main() -> int:
         emit(line)
     t0 = time.monotonic()
     with phase_children(LATE_CHILD_PHASES) as late:
-        emit(timed(phase_pview_churn_25k, dev))
+        emit(timed(phase_pview_smoke, dev))
+        emit(timed(phase_pview_flight, dev))
         emit(timed(phase_pview_boot_1m, dev))
         emit(timed(phase_pview_profile, dev))
         lines = late()
@@ -2536,6 +2826,8 @@ def main() -> int:
         emit(lines[name])
     paths = {"agent_api": lines["agent_api"]["inbox_build_launches"],
              "agent_planes": lines["agent_planes"]["inbox_build_launches"],
+             "agent_cli": early["agent_cli"]["inbox_build_launches"],
+             "traffic_sim": early["traffic_sim"]["inbox_build_launches"],
              "dense_pick": pick["inbox_kernel_launches"],
              "pview_pick": pview_pick["inbox_kernel_launches"],
              "dense_ref_pick": dense_ref["pick"]["inbox_kernel_launches"],

@@ -44,6 +44,12 @@ shared state under ``self._lock``, reads return copies.
 
 The port's copy of `corrosion_tpu/runtime/alerts.py`. Every series a
 default rule names is published under the same name by the port's agent.
+One difference: a rule's state turns to firing in `_on_fire`, under the
+lock, together with its drill mark, trace ids, incident and profile.
+The JAX module turns it in `evaluate` and decorates it afterwards
+(a page's profile capture and incident dump take a while on a loaded
+host), so a reader between the two saw a firing row without its drill
+mark or profile; the traffic matrix's sick-disk bar failed on that.
 """
 
 from __future__ import annotations
@@ -341,7 +347,7 @@ class AlertEngine:
                         st.state == "pending"
                         and now - st.since_mono >= rule.for_secs * widen
                     ):
-                        st.state = "firing"
+                        # `_on_fire` turns it firing once decorated
                         fired.append(rule.name)
                 elif st.state != "ok":
                     if st.state == "firing":
@@ -407,6 +413,7 @@ class AlertEngine:
         )
         with self._lock:
             st = self._states[name]
+            st.state = "firing"
             st.drill = drill
             st.trace_ids = trace_ids
             st.incident = incident

@@ -24,15 +24,21 @@ metrics.py`:
       corro.transport.rtt.seconds{addr}          histogram: probe RTTs
 
 Instruments are mutated from whatever thread steps a simulation, so each
-carries its own lock (a `+=` is not atomic under the GIL). The
-cardinality guard and Prometheus serving are not ported.
+carries its own lock (a `+=` is not atomic under the GIL). A series name
+may mint at most `Registry.max_label_sets` label sets (the cardinality
+guard: further ones are dropped, counted under
+`corro.metrics.cardinality.dropped.total{kind}`, and the registry's size
+is the gauge `corro.metrics.series`). `render_prometheus` is the text
+exposition and `serve_prometheus` serves it at GET /metrics (the CLI
+agent's `telemetry.prometheus_bind_addr`).
 """
 
 from __future__ import annotations
 
 import threading
 from bisect import bisect_right
-from typing import Dict, List, Tuple
+from itertools import accumulate
+from typing import Dict, List, Optional, Tuple
 
 # Cumulative event lane, one int32 counter per protocol event (wraps
 # mod 2^32; drains take uint32 deltas).
@@ -137,8 +143,24 @@ class Histogram:
             self.count += 1
 
 
+def _labels_key(labels: Dict[str, str]) -> LabelKey:
+    return tuple(sorted(labels.items()))
+
+
+def _escape_label_value(v: str) -> str:
+    """Prometheus text format 0.0.4 label-value escaping (backslash,
+    double quote, line feed)."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
 class Registry:
-    """Counters, gauges and histograms keyed by (name, sorted labels)."""
+    """Counters, gauges, histograms and latency instruments keyed by
+    (name, sorted labels), with the per-name cardinality guard."""
+
+    # distinct label sets one series name may mint before further ones
+    # are dropped (counted) and handed a detached instrument
+    max_label_sets = 512
 
     def __init__(self):
         self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
@@ -147,23 +169,64 @@ class Registry:
         # windowed percentile histograms (`runtime/latency.py`)
         self._latencies: Dict[Tuple[str, LabelKey], object] = {}
         self._lock = threading.Lock()
+        # label sets minted per name (all kinds pooled), and the shared
+        # detached instruments a refused mint is handed
+        self._name_counts: Dict[str, int] = {}
+        self._null_counter = Counter()
+        self._null_gauge = Gauge()
+        self._null_histogram = Histogram()
+        self._null_latency = None
 
-    def _get(self, table, factory, name: str, labels: Dict[str, str]):
-        key = (name, tuple(sorted(labels.items())))
+    def _admit(self, name: str) -> bool:
+        """Under self._lock: account one new label set for `name`; False
+        once the name holds `max_label_sets`."""
+        n = self._name_counts.get(name, 0)
+        if n >= self.max_label_sets:
+            return False
+        self._name_counts[name] = n + 1
+        return True
+
+    def _note_mint(self) -> None:
+        """Publish the registry's size after a mint (outside the lock; the
+        gauge's own first mint recurses once, then takes the fast path)."""
+        g = self.gauge("corro.metrics.series")
+        with self._lock:
+            total = (len(self._counters) + len(self._gauges)
+                     + len(self._histograms) + len(self._latencies))
+        g.set(total)
+
+    def _get(self, table, kind, factory, name: str,
+             labels: Dict[str, str]):
+        """The instrument of (name, labels): an existing one, a newly
+        minted one, or None when the cardinality guard refuses it (the
+        drop is counted)."""
+        key = (name, _labels_key(labels))
+        minted = False
         with self._lock:
             inst = table.get(key)
-            if inst is None:
+            if inst is None and self._admit(name):
                 inst = table[key] = factory()
+                minted = True
+        if inst is None:
+            self.counter("corro.metrics.cardinality.dropped.total",
+                         kind=kind).inc()
+            return None
+        if minted:
+            self._note_mint()
         return inst
 
     def counter(self, name: str, **labels: str) -> Counter:
-        return self._get(self._counters, Counter, name, labels)
+        c = self._get(self._counters, "counter", Counter, name, labels)
+        return c if c is not None else self._null_counter
 
     def gauge(self, name: str, **labels: str) -> Gauge:
-        return self._get(self._gauges, Gauge, name, labels)
+        g = self._get(self._gauges, "gauge", Gauge, name, labels)
+        return g if g is not None else self._null_gauge
 
     def histogram(self, name: str, **labels: str) -> Histogram:
-        return self._get(self._histograms, Histogram, name, labels)
+        h = self._get(self._histograms, "histogram", Histogram, name,
+                      labels)
+        return h if h is not None else self._null_histogram
 
     def latency(self, name: str, **labels: str):
         """Windowed percentile histogram (`runtime/latency.py`
@@ -171,7 +234,14 @@ class Registry:
         over the sliding window and cumulative."""
         from corrosion_tpu_torch.runtime.latency import WindowedLatency
 
-        return self._get(self._latencies, WindowedLatency, name, labels)
+        w = self._get(self._latencies, "latency", WindowedLatency, name,
+                      labels)
+        if w is None:
+            with self._lock:
+                if self._null_latency is None:
+                    self._null_latency = WindowedLatency()
+            return self._null_latency
+        return w
 
     def latency_items(self):
         """Every latency instrument as (name, labels, instrument) rows,
@@ -216,6 +286,64 @@ class Registry:
             out.append(("latency", name + "_sum", dict(labels), c.total))
         return out
 
+    def render_prometheus(self) -> str:
+        """Prometheus text format 0.0.4 (the JAX registry's rendering)."""
+        from corrosion_tpu_torch.runtime import latency as _lat
+
+        out: List[str] = []
+
+        def fmt(name: str, labels: LabelKey,
+                extra: Optional[Dict[str, str]] = None) -> str:
+            norm = name.replace(".", "_").replace("-", "_")
+            items = list(labels) + (list(extra.items()) if extra else [])
+            if items:
+                lbl = ",".join(f'{k}="{_escape_label_value(v)}"'
+                               for k, v in items)
+                return f"{norm}{{{lbl}}}"
+            return norm
+
+        def tail(name: str, labels: LabelKey, buckets, total, count):
+            """Cumulative `le` buckets, `+Inf`, `_sum` and `_count`."""
+            for le, cum in buckets:
+                out.append(
+                    f"{fmt(name + '_bucket', labels, {'le': le})} {cum}")
+            out.append(
+                f"{fmt(name + '_bucket', labels, {'le': '+Inf'})} {count}")
+            out.append(f"{fmt(name + '_sum', labels)} {total}")
+            out.append(f"{fmt(name + '_count', labels)} {count}")
+
+        with self._lock:
+            for (name, labels), c in sorted(self._counters.items()):
+                out.append(f"{fmt(name, labels)} {c.value}")
+            for (name, labels), g in sorted(self._gauges.items()):
+                out.append(f"{fmt(name, labels)} {g.value}")
+            for (name, labels), h in sorted(self._histograms.items()):
+                with h._lock:
+                    counts = list(h.counts)
+                    total, count = h.total, h.count
+                tail(name, labels,
+                     zip(map(str, h.buckets), accumulate(counts)),
+                     total, count)
+            for (name, labels), w in sorted(self._latencies.items()):
+                # cumulative log buckets at the occupied edges, then the
+                # windowed quantile gauges
+                c = w.snapshot_cumulative()
+                occupied = c.nonzero_buckets()
+                tail(name, labels,
+                     zip((format(_lat.bucket_upper(i), ".6g")
+                          for i, _n in occupied),
+                         accumulate(n for _i, n in occupied)),
+                     c.total, c.count)
+                qs = w.quantiles(window_secs=_lat.DEFAULT_WINDOW_SECS)
+                for q in _lat.QUANTILES:
+                    v = qs[_lat._qname(q)]
+                    if v is not None:
+                        extra = {"quantile": format(q, "g"),
+                                 "window": format(_lat.DEFAULT_WINDOW_SECS,
+                                                  "g")}
+                        out.append(f"{fmt(name, labels, extra)} {v}")
+        return "\n".join(out) + "\n"
+
 
 METRICS = Registry()
 
@@ -248,3 +376,22 @@ def kernel_event_totals(
             out.setdefault(labels.get("kernel", "?"), {})[
                 labels.get("event", "?")] = value
     return out
+
+
+async def serve_prometheus(addr: str, registry: Registry = METRICS):
+    """Serve the registry at GET /metrics on `addr` ("host:port"); returns
+    the aiohttp AppRunner (`.cleanup()` stops it)."""
+    from aiohttp import web
+
+    async def h_metrics(_request):
+        return web.Response(text=registry.render_prometheus(),
+                            content_type="text/plain")
+
+    app = web.Application()
+    app.router.add_get("/metrics", h_metrics)
+    runner = web.AppRunner(app)
+    await runner.setup()
+    host, port = addr.rsplit(":", 1)
+    site = web.TCPSite(runner, host, int(port))
+    await site.start()
+    return runner

@@ -1,6 +1,5 @@
 """Tripwire: the cooperative shutdown signal every loop checks — the
-port's copy of `corrosion_tpu/runtime/tripwire.py` (its signal hookup,
-`Tripwire.from_signals`, comes with the CLI).
+port's copy of `corrosion_tpu/runtime/tripwire.py`.
 
 The agent's loops and the SWIM prober's (`agent/membership.py`) run
 until the tripwire fires; `preemptible` runs an awaitable unless the
@@ -12,6 +11,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import signal
 from enum import Enum
 from typing import Awaitable, Optional, Set, TypeVar
 
@@ -28,6 +28,19 @@ class Outcome(Enum):
 class Tripwire:
     def __init__(self):
         self._event = asyncio.Event()
+
+    @classmethod
+    def from_signals(cls) -> "Tripwire":
+        """A tripwire that SIGTERM and SIGINT fire (as incidents), bound
+        to the running loop: the CLI agent's."""
+        tw = cls()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            with contextlib.suppress(NotImplementedError):
+                loop.add_signal_handler(
+                    sig, tw.trip, f"signal:{signal.Signals(sig).name}"
+                )
+        return tw
 
     def trip(self, incident: Optional[str] = None) -> None:
         """Fire the tripwire. `incident` names an abnormal trip (a signal,

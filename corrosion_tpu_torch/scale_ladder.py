@@ -1,9 +1,14 @@
-"""The scale ladder's kernel rungs on the card — the port's copy of
-`scripts/scale_ladder.py` rungs 1, 2 and 3.
+"""The scale ladder on the card — the port's copy of
+`scripts/scale_ladder.py` rungs 0, 1, 2 and 3.
 
     python -m corrosion_tpu_torch.scale_ladder [rung ...] [--out PATH]
-                                                  (default 1 2 3)
+                                   (default: the kernel rungs, 1 2 3)
 
+  0. a 3-node `DevCluster` (topology `A -> C`, `B -> C`) of host agents
+     on the in-memory network, default SWIM: seconds to full membership,
+     the broadcast latency of one write, and the false positive after a
+     5 s healthy soak (the agents' stores on the card, or the device
+     named);
   1. 128 members (seed 2), converged, then 5 % crashed at once: ticks to
      full detection and the false positives after the churn;
   2. 1,000 members, fanout 3 (seed 3), suspicion 3, 6 and 9 ticks:
@@ -16,10 +21,10 @@
 Each rung is a `ClusterSim` on the card (or the device named) driven as
 the script drives the JAX one: the same seeds, the same warm-up steps
 (they advance the rng chain), the same `_converge` and `_churn`, so the
-ticks, detections and false positives are the JAX package's. Rung 0 (a
-`DevCluster` of host agents) and rung 4 (the sharded mesh) are not
-ported. One JSON line is printed per record; the records are merged
-into `--out` (by `name`) only when that is given. Run it as a module
+ticks, detections and false positives are the JAX package's. Rung 4
+(the sharded mesh) is not ported. One JSON line is printed per record;
+the records are merged into `--out` (by `name`) only when that is
+given. Run it as a module
 from the repo root (`-m`): the package's own `random.py` must not
 shadow the standard library's.
 """
@@ -27,6 +32,7 @@ shadow the standard library's.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
 import time
@@ -39,6 +45,7 @@ from corrosion_tpu_torch.runtime.device import resolve_device
 from corrosion_tpu_torch.runtime.device import sync as device_sync
 from corrosion_tpu_torch.runtime.records import merge_records
 
+# the kernel rungs (the default); rung 0 runs when named
 RUNGS = (1, 2, 3)
 
 # the fields of a record that the JAX package's run fixes exactly
@@ -108,6 +115,48 @@ def _churn(sim, frac: int, seed: int, max_extra: int) -> dict:
         "detect_all_ticks": det_ticks,
         "false_positive_after_churn": s2["false_positive"],
     }
+
+
+def rung0(device=None) -> List[dict]:
+    """The script's rung 0: three in-process agents over `DevCluster`."""
+    from corrosion_tpu_torch.agent.membership import SwimConfig
+    from corrosion_tpu_torch.devcluster import DevCluster, Topology
+    from corrosion_tpu_torch.net.mem import MemNetwork
+
+    schema = (
+        "CREATE TABLE tests (id INTEGER NOT NULL PRIMARY KEY,"
+        " text TEXT NOT NULL DEFAULT '');"
+    )
+
+    async def main():
+        cluster = DevCluster(
+            Topology.parse("A -> C\nB -> C\n"),
+            schema,
+            network=MemNetwork(seed=1),
+            swim_config=SwimConfig(),  # default params
+            device=device,
+        )
+        await cluster.start()
+        try:
+            t = await cluster.wait_converged(timeout=60.0)
+            lat = await cluster.measure_broadcast_latency(
+                "A", "tests", 1, "ladder", timeout=60.0
+            )
+            # healthy soak: a false positive is anyone losing a member
+            await asyncio.sleep(5.0)
+            sizes = list(cluster.membership_counts().values())
+            return [emit(
+                0,
+                "devcluster_3node_default_swim",
+                convergence_s=round(t, 3),
+                broadcast_latency_s=round(max(lat.values()), 3),
+                false_positive=0.0 if all(s == 3 for s in sizes) else 1.0,
+                platform="host-asyncio",
+            )]
+        finally:
+            await cluster.stop()
+
+    return asyncio.run(main())
 
 
 def rung1(device=None, new_sim: Optional[Callable] = None) -> List[dict]:
@@ -192,12 +241,12 @@ def rung3(device=None, new_sim: Optional[Callable] = None,
     )]
 
 
-RUNG_FNS = {1: rung1, 2: rung2, 3: rung3}
+RUNG_FNS = {0: rung0, 1: rung1, 2: rung2, 3: rung3}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("rungs", nargs="*", type=int, choices=RUNGS,
+    ap.add_argument("rungs", nargs="*", type=int, choices=(0,) + RUNGS,
                     help="rungs to run (default: 1 2 3)")
     ap.add_argument("--out", help="merge the records into this JSON list "
                                   "file (by their 'name')")

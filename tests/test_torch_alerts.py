@@ -91,9 +91,8 @@ def _fed_tsdb(pkg, steps: int = 6, **kw):
 
 
 def _census(db) -> dict:
-    """The TSDB's census without the JAX registry's own size gauge
-    (`corro.metrics.series`, minted by its cardinality guard, which the
-    port's registry does not have)."""
+    """The TSDB's census without the registry's own size gauge
+    (`corro.metrics.series`, minted by its cardinality guard)."""
     out = db.census()
     for f in db.fields():
         if f.startswith("corro.metrics."):
@@ -139,8 +138,8 @@ def test_tsdb_aggregates_match(across, over):
 
 def test_tsdb_absent_and_series_cap_match():
     def read(pkg):
-        # the JAX registry's own size gauge takes one more series slot
-        db = _fed_tsdb(pkg, max_series=3 + (pkg is PKGS["jax"]))
+        # the registry's own size gauge takes one series slot
+        db = _fed_tsdb(pkg, max_series=4)
         drops = db.registry.counter("corro.tsdb.series.dropped.total").value
         db._wall.t += 120.0
         return (_fields(db), drops,
@@ -207,6 +206,56 @@ def test_default_rule_fires_holds_and_resolves(name, flight_dir,
     assert states[-1] == "ok"
     events = [(h["rule"], h["event"]) for h in tr["history"]]
     assert events == [(name, "fired"), (name, "resolved")]
+
+
+def test_a_firing_row_carries_its_drill_mark(flight_dir, planes_reset,
+                                             monkeypatch):
+    """A page rule firing during a drill, its row read while the engine
+    dumps the incident (where a reader on another thread can read it):
+    the JAX engine shows it firing with no drill mark yet, the port's
+    still pending (it turns firing with its decorations, the one
+    difference of `runtime/alerts.py`). After `evaluate` both rows and
+    histories are equal, firing with the drill's name."""
+    rule = next(r for r in jalerts.DEFAULT_RULES if r["name"] == "store-faults")
+
+    def run(pkg):
+        reg = pkg.metrics.Registry()
+        clock = Clock()
+        db = pkg.tsdb.MetricsTSDB(registry=reg, sample_interval_secs=1.0,
+                                  clock=clock, wall=clock)
+        eng = pkg.alerts.AlertEngine(tsdb=db, cfg=pkg.config.AlertsConfig(),
+                                     registry=reg, clock=clock, wall=clock)
+        mid = []
+        dump = pkg.flight.snapshot_incident
+
+        def read_then_dump(*a, **kw):
+            mid.append(next(r for r in eng.report(history=False)["rules"]
+                            if r["rule"] == "store-faults"))
+            return dump(*a, **kw)
+
+        monkeypatch.setattr(pkg.flight, "snapshot_incident", read_then_dump)
+        pkg.faults.CENSUS.begin("sick-disk")
+        try:
+            for _ in range(40):
+                _drive_series(reg, rule, on=True)
+                db.sample_once()
+                eng.evaluate()
+                clock.t += 1.0
+                if mid:
+                    break
+        finally:
+            pkg.faults.CENSUS.end()
+        report = eng.report()
+        for row in report["rules"]:
+            row["incident"] = None  # a dump's path names the process
+        return mid, report
+    (jm, jr), (tm, tr) = _both(run)
+    assert len(jm) == len(tm) == 1
+    assert (jm[0]["state"], jm[0]["drill"]) == ("firing", None)
+    assert (tm[0]["state"], tm[0]["drill"]) == ("pending", None)
+    assert tr == jr
+    row = next(r for r in tr["rules"] if r["rule"] == "store-faults")
+    assert (row["state"], row["drill"]) == ("firing", "sick-disk")
 
 
 def test_rule_pack_overrides_and_refusals_match():

@@ -213,7 +213,7 @@ def test_state_round_trips_through_numpy():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports without
-    loading `jax` or any module of `corrosion_tpu`."""
+    loading `jax`, any module of `corrosion_tpu` or any of `tests`."""
     root = Path(__file__).resolve().parent.parent
     mods = sorted(
         ".".join(p.relative_to(root).with_suffix("").parts)
@@ -229,12 +229,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "runtime.profstore", "runtime.tsdb", "runtime.alerts",
         "runtime.tracestore", "runtime.otel", "runtime.profiler",
         "agent.remediation", "planes_checks")} <= set(mods)
+    # the operator surface and the chaos harness among them
+    assert {f"corrosion_tpu_torch.{m}" for m in (
+        "admin", "tpl", "consul", "devcluster", "cli", "__main__",
+        "runtime.tmpdb", "chaos.scenarios", "chaos.workload",
+        "traffic_sim", "cli_checks")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'corrosion_tpu' or "
-        "m.startswith('corrosion_tpu.'))\n"
+        "m.startswith('corrosion_tpu.') or m == 'tests' or "
+        "m.startswith('tests.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
     )
