@@ -16,6 +16,23 @@ non-zero before the result line is printed:
    stream: whether GSO stayed on, its batches, segments and diversions),
    and the seconds loopback TCP takes for 12,000 bytes in 300 writes of
    40 B and in 3 writes of 4,000 B;
+1a. `analysis`: the port's corro-analyze (`corrosion_tpu_torch.analysis`,
+   every rule) over this checkout must be clean against
+   `ANALYSIS_BASELINE_TORCH.json`; then kernel-purity is held against
+   the card: two dense pick ticks at the slice's state (n=10,000, the
+   inbox kernel launched once each), the dense stats pass, two pview
+   pick ticks (the kernel launched once each) and the pview stats pass
+   at n=4,096, K=256, and one `crdt_merge` batch of 4,096 rows that
+   captures its CUDA graph and one that replays it, each under
+   `torch.cuda.set_sync_debug_mode("warn")`.
+   Each reported sync is mapped to the innermost line of the port on its
+   Python stack; it fails if a sync lies inside a device root's closure
+   at a statement the static rule does not report (baselined and
+   suppressed sites count), or if an idiom the rule lets pass
+   (`x[mask] = 0`, `masked_fill`, int indexing, `repeat_interleave(3)`,
+   `as_tensor` of a device tensor) reports a sync. Prints the findings
+   per rule, the syncs each idiom reports, the syncs per tick (or call)
+   of each root, the host wrappers' syncs and every site;
 2. the inbox kernel against its plain PyTorch version on the card, at the
    dense tick's shapes (n=10,000, G=20,000, m=5, slots=8, several seeds),
    at the other shapes of `inbox_bench.SHAPES` (n=10^5, n=10^6 and the
@@ -402,6 +419,7 @@ load's effect on their host-clock readings, within one call.
 
 from __future__ import annotations
 
+import ast
 import asyncio
 import contextlib
 import importlib
@@ -412,6 +430,8 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1100,6 +1120,288 @@ def phase_host() -> dict:
             "loopback_s": {
                 "300x40B": asyncio.run(_loopback_writes(300, 40)),
                 "3x4000B": asyncio.run(_loopback_writes(3, 4000))}}
+
+
+REPO_ROOT = Path(__file__).resolve().parent
+PORT_DIR = REPO_ROOT / "corrosion_tpu_torch"
+ANALYSIS_PVIEW_N = 4096  # the pview slice's warm-up sim's n and K
+ANALYSIS_CRDT_ROWS = 4096
+
+
+class SyncRecorder:
+    """Every synchronizing CUDA operation the card reports under
+    `torch.cuda.set_sync_debug_mode("warn")`, each with the Python stack
+    at the moment its warning is shown: the warning's own location is
+    the innermost Python frame, which for an op torch wraps in Python
+    (`torch.unique`, a graph capture's `synchronize`) is torch's file,
+    so the caller's line is read off the stack instead."""
+
+    # the warning of one sync (torch's `warn_or_error_on_sync`); the mode
+    # itself warns once per process that it "does not yet detect all
+    # synchronizing operations" (`torch.cuda.synchronize` is one)
+    MESSAGE = "called a synchronizing CUDA operation"
+
+    def __init__(self, label: str):
+        self.label = label
+        self.events = []
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        if self.MESSAGE not in str(message):
+            return self._prev(message, category, filename, lineno, file, line)
+        self.events.append({
+            "warned_at": (filename, lineno),
+            "stack": traceback.extract_stack()[:-2],
+        })
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        warnings.simplefilter("always")
+        self._prev = warnings.showwarning
+        warnings.showwarning = self._show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._cm.__exit__(*exc)
+        torch.cuda.synchronize()
+        return False
+
+
+def _rel(filename: str):
+    """The repo path of a file of the port, None for any other file."""
+    try:
+        path = Path(filename).resolve()
+        path.relative_to(PORT_DIR)
+    except ValueError:
+        return None
+    return path.relative_to(REPO_ROOT).as_posix()
+
+
+def _statement(ctx, rel: str, line: int) -> tuple:
+    """(path, first line) of the innermost statement holding `line`: a
+    card-reported frame line and a static finding's line meet there,
+    whichever line of a multi-line statement each names."""
+    best = None
+    for node in ast.walk(ctx.file(rel).tree):
+        if (isinstance(node, ast.stmt)
+                and node.lineno <= line <= node.end_lineno
+                and (best is None or node.lineno >= best.lineno)):
+            best = node
+    return (rel, best.lineno if best is not None else line)
+
+
+def _device_roots(ctx):
+    """{(path, root): [(first, last) line of each function of its
+    closure]} from the analyzer's own kernel-purity closure."""
+    from corrosion_tpu_torch.analysis.purity import (SCOPE,
+                                                     KernelPurityChecker)
+
+    out = {}
+    for sf in ctx.walk(*SCOPE):
+        fns = {n.name: n for n in sf.tree.body
+               if isinstance(n, ast.FunctionDef)}
+        for root, reach in KernelPurityChecker.closure(sf.tree).items():
+            out[(sf.path, root)] = [(fns[f].lineno, fns[f].end_lineno)
+                                    for f in reach]
+    return out
+
+
+def _sync_sites(rec: SyncRecorder, roots: dict) -> list:
+    """Per reported sync: the innermost frame of the port (its site) and
+    the device roots whose frames are on its stack."""
+    out = []
+    for ev in rec.events:
+        frames = [(_rel(f.filename), f.lineno, f.name) for f in ev["stack"]]
+        port = [f for f in frames if f[0] is not None]
+        if not port:
+            raise AssertionError(f"{rec.label}: a sync with no frame of the "
+                                 f"port on its stack: {ev['warned_at']}")
+        on_stack = {(p, name) for p, _ln, name in port} & set(roots)
+        out.append({"site": port[-1][:2], "roots": sorted(on_stack),
+                    "warned_at": ev["warned_at"]})
+    return out
+
+
+def sync_idioms(dev) -> dict:
+    """{idiom: syncs the card reports for it}: what kernel-purity flags
+    (`flagged`) and what it lets pass (`exempt`). An exempt idiom that
+    reports a sync is a hole in the rule."""
+    x = torch.arange(1000, device=dev)
+    m = x % 3 == 0
+    flagged = {
+        "torch.tensor(list)": lambda: torch.tensor([1, 2], device=dev),
+        "torch.as_tensor(int)": lambda: torch.as_tensor(3, device=dev),
+        "x[mask]": lambda: x[m],
+        "x[mask] = tensor": lambda: x.clone().__setitem__(m, x[:334]),
+        "torch.where(cond)": lambda: torch.where(m),
+        "nonzero": lambda: m.nonzero(),
+        "repeat_interleave(tensor)": lambda: x[:10].repeat_interleave(
+            x[:10] % 3),
+        "bool()": lambda: bool(m.any()),
+        ".item()": lambda: x.sum().item(),
+        "torch.unique": lambda: torch.unique(x % 7),
+        "masked_select": lambda: x.masked_select(m),
+        "int()": lambda: int(x[3]),
+        ".cpu()": lambda: x.cpu(),
+        "torch.cuda.synchronize()": torch.cuda.synchronize,
+    }
+    exempt = {
+        "x[mask] = 0": lambda: x.clone().__setitem__(m, 0),
+        "masked_fill": lambda: x.masked_fill(m, 0),
+        "x[int tensor]": lambda: x[x[:10]],
+        "repeat_interleave(3)": lambda: x[:10].repeat_interleave(3),
+        "torch.as_tensor(device tensor)": lambda: torch.as_tensor(
+            x, device=dev),
+    }
+    out = {}
+    for kind, cases in (("flagged", flagged), ("exempt", exempt)):
+        out[kind] = {}
+        for name, fn in cases.items():
+            with SyncRecorder(name) as rec:
+                fn()
+            out[kind][name] = len(rec.events)
+    holes = [name for name, n in out["exempt"].items() if n]
+    if holes:
+        raise AssertionError(f"idioms kernel-purity lets pass report syncs "
+                             f"on the card: {holes}")
+    return out
+
+
+def phase_analysis(dev) -> dict:
+    """The port's analyzer over this checkout (clean against its
+    baseline), the syncs the card reports per idiom (`sync_idioms`),
+    then kernel-purity held against the card: one dense pick
+    tick at the slice's state and a second one, the dense stats pass, two
+    pview ticks and its stats pass at n=4,096, K=256, and one crdt_merge
+    batch that captures its CUDA graph and one that replays it, each
+    under `set_sync_debug_mode("warn")`. Every sync the card reports at
+    a line inside a device root's closure must be a site the static rule
+    reports (raw: baselined and suppressed sites count)."""
+    from corrosion_tpu_torch.analysis import (AnalysisContext, all_checkers,
+                                              run_analysis)
+    from corrosion_tpu_torch.analysis.purity import KernelPurityChecker
+
+    t0 = time.monotonic()
+    ctx = AnalysisContext(str(REPO_ROOT))
+    result = run_analysis(ctx)
+    lint_s = time.monotonic() - t0
+    if not result.ok:
+        raise AssertionError(
+            "corro_lint on the port is not clean: "
+            + "; ".join(f.render() for f in result.new)
+            + "; stale: " + ", ".join(result.stale_keys))
+    by_rule = {}
+    for kind, found in (("baselined", [f for f, _ in result.baselined]),
+                        ("suppressed", result.suppressed)):
+        for f in found:
+            by_rule.setdefault(f.rule, {"baselined": 0, "suppressed": 0})
+            by_rule[f.rule][kind] += 1
+    static = {_statement(ctx, f.path, f.line)
+              for f in KernelPurityChecker().run(ctx)}
+    roots = _device_roots(ctx)
+    idioms = sync_idioms(dev)
+
+    runs = []  # (label, the device root it calls, recorder)
+
+    def record(label, root, fn):
+        with SyncRecorder(label) as rec:
+            out = fn()
+        runs.append((label, root, rec))
+        return out
+
+    dense = ("corrosion_tpu_torch/ops/swim.py", "tick_impl")
+    p = dict(bench_params(SLICE_N), gossip_mode="pick", inbox_impl="cuda")
+    sim = ClusterSim(SLICE_N, seed=0, seed_mode="fingers", device=dev, **p)
+    key = jr.PRNGKey(0)
+    launches0 = inbox_cuda.build_inbox.launches
+    state = record("dense_tick_first", dense, lambda: swim.tick_impl(
+        sim.state, jr.fold_in(key, 0), sim.params))
+    state = record("dense_tick", dense, lambda: swim.tick_impl(
+        state, jr.fold_in(key, 1), sim.params))
+    record("dense_stats", (dense[0], "_stats_sums"),
+           lambda: swim._stats_sums(state.view, state.alive))
+    dense_launches = inbox_cuda.build_inbox.launches - launches0
+    if dense_launches != 2:
+        raise AssertionError(f"analysis: 2 dense pick ticks launched the "
+                             f"inbox kernel {dense_launches} times")
+    del sim, state
+    launches0 = inbox_cuda.build_inbox.launches
+    pview = ("corrosion_tpu_torch/ops/swim_pview.py", "tick_impl")
+    kw = dict(PVIEW_ARGS, slots=256, gossip_mode="pick")
+    pv = PViewClusterSim(ANALYSIS_PVIEW_N, device=dev, **kw)
+    pstate = record("pview_tick_first", pview, lambda: swim_pview.tick_impl(
+        pv.state, jr.fold_in(key, 0), pv.params))
+    pstate = record("pview_tick", pview, lambda: swim_pview.tick_impl(
+        pstate, jr.fold_in(key, 1), pv.params))
+    record("pview_stats", (pview[0], "_stats_impl"),
+           lambda: swim_pview._stats_impl(pv.params, pstate.slot_packed,
+                                          pstate.alive, pstate.t))
+    del pv, pstate
+    pview_launches = inbox_cuda.build_inbox.launches - launches0
+    if pview_launches != 2:
+        raise AssertionError(f"analysis: 2 pview pick ticks launched the "
+                             f"inbox kernel {pview_launches} times")
+    program = ("corrosion_tpu_torch/ops/crdt_merge.py", "_program")
+    arrays = crdt_bench.scale_inputs(ANALYSIS_CRDT_ROWS, 0)
+    packed = crdt_merge.pack_inputs(arrays)
+    captures0 = crdt_merge.replay_stats()["captures"]
+    for label in ("crdt_capture", "crdt_replay"):
+        record(label, program, lambda: crdt_merge.run_packed(
+            packed, arrays["num_groups"], arrays["num_cells"], dev))
+    if crdt_merge.replay_stats()["captures"] != captures0 + 1:
+        raise AssertionError("analysis: the crdt batch did not take the "
+                             "captured path")
+    missing = {r for _l, r, _rec in runs} - set(roots)
+    if missing:
+        raise AssertionError(f"analysis: {sorted(missing)} are not device "
+                             f"roots of kernel-purity")
+
+    # per run: the syncs with its root's frame on the stack (one tick or
+    # one call each) and those with no root's frame (its host wrapper)
+    per_root, outside = {}, {}
+    sites, unreported = {}, []
+    for label, root, rec in runs:
+        evs = _sync_sites(rec, roots)
+        per_root.setdefault("::".join(root), {})[label] = sum(
+            root in ev["roots"] for ev in evs)
+        outside[label] = sum(not ev["roots"] for ev in evs)
+        for ev in evs:
+            path, line = ev["site"]
+            inside = [r for r in roots if r[0] == path and any(
+                lo <= line <= hi for lo, hi in roots[r])]
+            row = sites.setdefault(f"{path}:{line}", {
+                "count": 0, "runs": set(), "in_closure_of": set(),
+                "static": _statement(ctx, path, line) in static,
+                "warned_at": "%s:%d" % ev["warned_at"]})
+            row["count"] += 1
+            row["runs"].add(label)
+            row["in_closure_of"].update("::".join(r) for r in inside)
+            if inside and not row["static"]:
+                unreported.append(f"{path}:{line} ({label})")
+    if unreported:
+        raise AssertionError(
+            "kernel-purity misses syncs the card reports inside a device "
+            "root's closure: " + ", ".join(sorted(set(unreported))))
+    return {
+        "phase": "analysis", "ok": True,
+        "lint": {"rules": len(all_checkers()), "new": len(result.new),
+                 "stale": len(result.stale_keys),
+                 "baselined": len(result.baselined),
+                 "suppressed": len(result.suppressed),
+                 "by_rule": by_rule, "lint_s": lint_s},
+        "kernel_purity_static_sites": len(static),
+        "idioms": idioms,
+        "syncs_per_tick": per_root,
+        "host_wrapper_syncs": outside,
+        "sync_sites": {k: {**v, "runs": sorted(v["runs"]),
+                           "in_closure_of": sorted(v["in_closure_of"])}
+                       for k, v in sorted(sites.items())},
+        "inbox_kernel_launches": dense_launches + pview_launches,
+    }
 
 
 def phase_inbox_kernel(dev) -> dict:
@@ -2782,6 +3084,8 @@ def main() -> int:
     t_start = time.monotonic()
     emit(timed(phase_build))
     emit(timed(phase_host))
+    analysis = timed(phase_analysis, dev)
+    emit(analysis)
     inbox = timed(phase_inbox_kernel, dev)
     emit(inbox)
     emit(timed(phase_entry, dev))
@@ -2824,7 +3128,8 @@ def main() -> int:
     for name in LATE_CHILD_PHASES:
         lines[name]["side_by_side_wall_s"] = time.monotonic() - t0
         emit(lines[name])
-    paths = {"agent_api": lines["agent_api"]["inbox_build_launches"],
+    paths = {"analysis": analysis["inbox_kernel_launches"],
+             "agent_api": lines["agent_api"]["inbox_build_launches"],
              "agent_planes": lines["agent_planes"]["inbox_build_launches"],
              "agent_cli": early["agent_cli"]["inbox_build_launches"],
              "traffic_sim": early["traffic_sim"]["inbox_build_launches"],

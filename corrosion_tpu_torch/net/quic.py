@@ -746,7 +746,10 @@ class QuicConnection:
             track or [], time.monotonic(), ack_eliciting, len(pkt)
         )
         if space == S_APP and ack_eliciting:
-            self._app_in_flight += 1
+            # lock-discipline reads `close` as a worker-thread entry by
+            # name (`to_thread(matcher.close)`, `to_thread(f.close)`);
+            # this connection's `close` runs only on the event loop
+            self._app_in_flight += 1  # corro: noqa[lock-discipline] loop-only
         return pkt
 
     def _header_overhead(self, space: int) -> int:

@@ -28,6 +28,7 @@ happen:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -187,10 +188,14 @@ def _census_frame(n: int, alive, susp_subj, inc, in_subj, lhm) -> torch.Tensor:
     )
 
 
+@functools.lru_cache(maxsize=64)
 def _susp_shrink_table(params: SwimParams, device) -> torch.Tensor:
     """[susp_k + 1] int32 Lifeguard LHA-Suspicion deadline table: the
     open-timer duration after c confirmations, from the ceiling
-    suspicion_ticks * susp_ceiling down to suspicion_ticks at c = susp_k."""
+    suspicion_ticks * susp_ceiling down to suspicion_ticks at c = susp_k.
+    Built once per (params, device): the host-to-device copy of the table
+    waits for the card, so a tick must not make it every time. Callers
+    only read it."""
     lo = params.suspicion_ticks
     hi = params.suspicion_ticks * params.susp_ceiling
     k = max(1, params.susp_k)
@@ -513,6 +518,11 @@ def _row_scatter_max_(view, cols, vals, prev) -> None:
 # ---------------------------------------------------------------------------
 # the tick
 
+
+# the device code that one CUDA graph per tick would capture: the
+# analyzer's kernel-purity rule lists every host sync in these functions
+# and the module functions they reach
+DEVICE_ROOTS = ("tick_impl", "_stats_sums")
 
 def tick_impl(state: SwimState, key: jr.Key, params: SwimParams) -> SwimState:
     """Advance every member one SWIM protocol period. `state.view` is

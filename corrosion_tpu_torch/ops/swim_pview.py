@@ -344,6 +344,11 @@ def _scatter_max_(packed, cols, vals) -> None:
 # the tick
 
 
+# the device code that one CUDA graph per tick would capture: the
+# analyzer's kernel-purity rule lists every host sync in these functions
+# and the module functions they reach
+DEVICE_ROOTS = ("tick_impl", "_stats_impl")
+
 def tick_impl(state: PViewState, key: jr.Key,
               params: PViewParams) -> PViewState:
     """One SWIM protocol period for every member, phase for phase the

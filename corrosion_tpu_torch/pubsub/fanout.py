@@ -201,9 +201,13 @@ class StreamSink:
 
     def flush(self, observe: bool = True) -> bool:
         """Write as much pending data as the transport accepts RIGHT
-        NOW; returns True when fully drained.  Sheds past lag bounds."""
+        NOW; returns True when fully drained.  Sheds past lag bounds.
+
+        Runs on the event loop only (the fan-out writer); lock-discipline
+        reads `flush` as a worker-thread entry by name, from the OTLP
+        exporter's `to_thread(exp.flush)`."""
         if self.closed or self.done.done():
-            self.pending.clear()
+            self.pending.clear()  # corro: noqa[lock-discipline] loop-only
             self.pending_bytes = 0
             return True
         wrote = 0
@@ -232,7 +236,7 @@ class StreamSink:
                 if n == 0:
                     break
                 wrote += 1
-                self.pending_bytes -= n
+                self.pending_bytes -= n  # corro: noqa[lock-discipline] loop-only
                 while n:  # consume n bytes off the head entries
                     p, off = self.pending[0]
                     rem = len(p) - off

@@ -234,6 +234,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "admin", "tpl", "consul", "devcluster", "cli", "__main__",
         "runtime.tmpdb", "chaos.scenarios", "chaos.workload",
         "traffic_sim", "cli_checks")} <= set(mods)
+    # the analyzer and its drivers among them
+    assert {f"corrosion_tpu_torch.{m}" for m in (
+        "analysis", "analysis.core", "analysis.purity", "analysis.parity",
+        "corro_lint", "lint_metrics")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
